@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (synapta_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile]
+
+Builds both CUDA kernels from synapta_tpu_torch/csrc, checks each against
+its plain PyTorch twin at the main path's shapes, checks the recognizer in
+bf16 on the GPU against float32 on the CPU, then drives
+VisualSegmentationPipeline(device="cuda") end to end: a 4-page book on the
+GPU and on the CPU (segments must match), and a 64-page book at the
+production chunk shapes. Every phase prints one JSON line; any failure
+exits nonzero. The last line is
+
+    {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
+
+``--profile`` adds one more 64-page run under torch.profiler (device-busy
+share, device time by kernel; trace in chiprun_out/). There is no CPU fallback: without CUDA the script exits 1 and prints no
+result. Synthetic inputs are made from fixed seeds.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SEED = 42
+CARD = {}  # name and power limit, repeated on every line with a time
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def cuda_ms(fn, runs: int = 10, warmup: int = 2) -> float:
+    """Median device time of fn() in ms over `runs` runs (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def rendered_crops(pdf: str, pages, n: int = 16):
+    """The first n region canvases (B, 512, 512, 3) uint8 and their true
+    (h, w), through the port's host prepare stage (detect + render)."""
+    import numpy as np
+
+    from synapta_tpu.config import PipelineConfig
+    from synapta_tpu.io.ingest import open_pdf
+    from synapta_tpu.io.loader import prepare_batch
+    from synapta_tpu.vision.detect import DetectionEngine
+
+    cfg = PipelineConfig()
+    render_doc = open_pdf(pdf)
+    engine = DetectionEngine(open_pdf(pdf), cfg.detection, pixels_doc=render_doc)
+    prepared = prepare_batch(engine, render_doc, cfg.detection.render_dpi,
+                             cfg.ocr.crop_size, pages)
+    if prepared is None:
+        raise RuntimeError(f"no visual regions on pages {list(pages)}")
+    canvases = np.array(prepared[1][:n])  # copy out of the loader's ring
+    dims = [tuple(d) for d in prepared[2][:n]]
+    real = canvases.shape[0]
+    if real < n:
+        pad = np.full((n - real,) + canvases.shape[1:], 255, np.uint8)
+        canvases = np.concatenate([canvases, pad])
+        dims += [(1, 1)] * (n - real)
+    return canvases, np.array(dims, np.int32), real
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "synapta_tpu_torch")):
+        return fail("synapta_tpu_torch/ not found next to chip_smoke.py")
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is False (no GPU, no result)")
+
+    from synapta_tpu_torch.hostlibs import ensure_fixture_fonts, ensure_native_engine
+
+    ensure_native_engine([os.path.abspath(__file__), *sys.argv[1:]])
+    ensure_fixture_fonts()
+    import numpy as np
+
+    # ------------------------------------------------------------ 0. env
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        smi = []
+    smi_line = smi[0] if smi else "unknown, unknown"
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    CARD.update(card=smi_line)
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda, device=name,
+         capability=list(cap), count=torch.cuda.device_count(),
+         python=sys.version.split()[0], **CARD)
+    if cap != (9, 0):
+        return fail(f"needs compute capability 9.0 (Hopper), got {cap}")
+    dev = torch.device("cuda")
+    from synapta_tpu_torch.device import resolve_device
+
+    resolve_device("cuda")  # sets the TF32 switches off
+
+    # ---------------------------------------------------------- 1. build
+    from synapta_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke_build.log"), "w") as f:
+        f.write(_build.build_log())
+    emit("build", seconds=build_s, library=_build.library_path().name)
+
+    from synapta_tpu.io.pdf_writer import make_test_book
+    from synapta_tpu_torch.ocr.linedet import fuse_text_mask
+    from synapta_tpu_torch.ops.cc import connected_components_reference
+    from synapta_tpu_torch.ops.cuda_cc import connected_components_cuda
+    from synapta_tpu_torch.ops.cuda_kernels import (
+        fused_edge_stats_cuda,
+        fused_edge_stats_reference,
+    )
+    from synapta_tpu_torch.ops.features import _core_features, _enclosed_mask
+    from synapta_tpu_torch.ops.filters import downsample2, downsample2_min
+    from synapta_tpu_torch.ops.color import gray_quarter_host
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    book64 = os.path.join(tmp, "book64.pdf")
+    truths = make_test_book(book64, pages=64, seed=SEED)
+    canvases, sizes, real = rendered_crops(book64, range(0, 16))
+    gray_np, rgb_q_np = gray_quarter_host(canvases)
+    rgb_q_np = np.ascontiguousarray(rgb_q_np[:, ::2, ::2])
+    gray_u8 = torch.from_numpy(gray_np).to(dev)
+    rgb_q = torch.from_numpy(rgb_q_np).to(dev)
+
+    # ------------------------------------------------------------- 2. cc
+    with torch.inference_mode():
+        feats = _core_features(gray_u8, rgb_q)
+        ink, vink, bg = feats["_ink"], feats["_vink"], feats["_bg"]
+        main_masks = {  # the four main-path call sites: (mask, cap, conn)
+            "ink_blobs": (downsample2(ink), 6, 8),
+            "vink_bars": (downsample2_min(vink), 4, 8),
+            "enclosed_bg": (downsample2(_enclosed_mask(1.0 - bg)), 6, 4),
+            "text_lines": (downsample2(fuse_text_mask(ink)), 10, 8),
+        }
+    gen = np.random.default_rng(SEED)
+    rand = torch.from_numpy(
+        (gen.random((16, 256, 256)) < 0.45).astype(np.float32)).to(dev)
+    cc_rows, cc_err, cc_ms, cc_plain_ms = [], 0, 0.0, 0.0
+    for site, (mask, iters, conn) in main_masks.items():
+        mask = mask.contiguous()
+        for kind, m in (("rendered", mask), ("random", rand)):
+            got = connected_components_cuda(m, iters, conn)
+            torch.cuda.synchronize()
+            want = connected_components_reference(m, iters, conn)
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            cc_err = max(cc_err, err)
+            if err:
+                emit("cc", site=site, input=kind, mismatched=int((got != want).sum()))
+                return fail(f"cc kernel != twin at {site} ({kind})")
+        k_ms = cuda_ms(lambda: connected_components_cuda(mask, iters, conn))
+        p_ms = cuda_ms(lambda: connected_components_reference(mask, iters, conn))
+        cc_ms += k_ms
+        cc_plain_ms += p_ms
+        cc_rows.append({"site": site, "shape": list(mask.shape), "max_iters": iters,
+                        "connectivity": conn, "components": int(
+                            connected_components_cuda(mask, iters, conn).unique().numel() - 1),
+                        "ms": k_ms, "plain_ms": p_ms})
+    emit("cc", exact=True, sites=cc_rows, ms_per_chunk=cc_ms,
+         plain_ms_per_chunk=cc_plain_ms, **CARD)
+
+    # ----------------------------------------------------- 3. edge stats
+    gray = gray_u8.to(torch.float32)
+    gray[-1] = 255.0  # one blank crop
+    gray = gray.contiguous()
+    got = fused_edge_stats_cuda(gray)
+    torch.cuda.synchronize()
+    want = fused_edge_stats_reference(gray)
+    edge_err = float((got - want).abs().max())
+    if edge_err != 0.0:
+        emit("edge_stats", got=got.tolist(), want=want.tolist())
+        return fail("edge-stats kernel != twin")
+    if float(got[-1].abs().sum()) != 0.0:
+        return fail("blank crop has nonzero edge counts")
+    edge_ms = cuda_ms(lambda: fused_edge_stats_cuda(gray))
+    edge_plain_ms = cuda_ms(lambda: fused_edge_stats_reference(gray))
+    emit("edge_stats", exact=True, shape=list(gray.shape),
+         counts_crop0=got[0].tolist(), ms=edge_ms, plain_ms=edge_plain_ms, **CARD)
+
+    # ----------------------------------------------------- 4. recognizer
+    from synapta_tpu.config import OCRConfig
+    from synapta_tpu_torch.models.msgpack_io import load_params
+    from synapta_tpu_torch.models.recognizer import recognizer_from_flax
+    from synapta_tpu_torch.ocr.processor import TorchOCR
+    from synapta_tpu_torch.ops.features import device_analyze_dispatch, unpack_analysis
+
+    ocr = TorchOCR(OCRConfig(), device="cuda")
+    tiles = []
+    for start in range(0, 64, 16):
+        crops, crop_sizes, n_real = rendered_crops(book64, range(start, start + 16))
+        packed = device_analyze_dispatch(crops, sizes=crop_sizes, device=dev)
+        _, boxes = unpack_analysis(packed.cpu().numpy(), crops.shape[0])
+        tiles += ocr.collect_tiles(crops[:n_real], None, boxes[:n_real])[0]
+        if len(tiles) >= 128:
+            break
+    tiles = np.stack(tiles[:128])
+    ocr_cpu = TorchOCR(OCRConfig(), device="cpu")
+    ocr_cpu.model = recognizer_from_flax(load_params(), dtype=torch.float32,
+                                         device="cpu")
+    rec_gpu = ocr.recognize_tiles(tiles)
+    rec_cpu = ocr_cpu.recognize_tiles(tiles)
+    agree = sum(a["text"] == b["text"] for a, b in zip(rec_gpu, rec_cpu)) / len(tiles)
+    tiles_dev = torch.from_numpy(tiles).to(dev)
+    rec_ms = cuda_ms(lambda: ocr._decode(tiles_dev), runs=10)
+    emit("recognizer", tiles=int(tiles.shape[0]), tile_shape=list(tiles.shape[1:]),
+         bf16_gpu_vs_f32_cpu_equal_share=agree, ms_per_128_tiles=rec_ms,
+         sample=[rec_gpu[0]["text"], rec_cpu[0]["text"]], **CARD)
+    if agree < 0.95:
+        return fail(f"recognizer agreement {agree:.3f} < 0.95")
+
+    # ------------------------------------------------------------ 5. e2e
+    from synapta_tpu.config import PipelineConfig
+    from synapta_tpu.llm.fake import DisabledClient
+    from synapta_tpu.utils.profiler import TIMERS
+    from synapta_tpu_torch.pipeline import VisualSegmentationPipeline
+
+    def run(pdf, out, device):
+        pipe = VisualSegmentationPipeline(
+            book_id="smoke", pdf_path=pdf, output_dir=out, use_mermaid=False,
+            config=PipelineConfig(use_vision_llm=False),
+            llm_client=DisabledClient(), resume=False, device=device,
+        )
+        t = time.perf_counter()
+        segs = pipe.process()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        pipe.close()
+        return pipe, segs, wall
+
+    def key(s):
+        b = s.bbox
+        return (s.segment_id, s.page_no, (b.x0, b.y0, b.x1, b.y1),
+                str(s.segment_type), s.caption_text)
+
+    book4 = os.path.join(tmp, "book4.pdf")
+    make_test_book(book4, pages=4, seed=SEED)
+    p_gpu, s_gpu, w_gpu = run(book4, os.path.join(tmp, "o4_gpu"), "cuda")
+    p_cpu, s_cpu, w_cpu = run(book4, os.path.join(tmp, "o4_cpu"), "cpu")
+    same = [key(s) for s in s_gpu] == [key(s) for s in s_cpu]
+    emit("e2e_4page", segments=len(s_gpu), cuda_equals_cpu=same,
+         errors=[p_gpu.stats.errors, p_cpu.stats.errors],
+         wall_s_cuda=w_gpu, wall_s_cpu=w_cpu, **CARD)
+    if not same or not s_gpu or p_gpu.stats.errors or p_cpu.stats.errors:
+        return fail("4-page book: cuda and cpu segments differ (or errors)")
+
+    # the main path: counters start at 0 here and are read right after
+    connected_components_cuda.launches = 0
+    fused_edge_stats_cuda.launches = 0
+    stage0 = dict(TIMERS.totals)
+    chunks0 = TIMERS.counts.get("features_dispatch", 0)
+    out64 = os.path.join(tmp, "o64")
+    pipe, segs, wall = run(book64, out64, "cuda")
+    stage_s = {k: v - stage0.get(k, 0.0) for k, v in TIMERS.totals.items()
+               if v - stage0.get(k, 0.0) > 0}
+    launches = {"cc": connected_components_cuda.launches,
+                "edge_stats": fused_edge_stats_cuda.launches}
+    chunks = TIMERS.counts.get("features_dispatch", 0) - chunks0
+    st = pipe.stats
+    written = all(os.path.exists(os.path.join(out64, f"smoke_{s}"))
+                  for s in ("visual_segments.json", "visual_summary.csv"))
+    # the repo's own quality checks (tests/test_pipeline.py): every visual
+    # page found, and chart/flowchart pages classified
+    visual_pages = {t.page_no + 1 for t in truths if t.visuals}
+    found_pages = {s.page_no for s in segs}
+    recall = len(visual_pages & found_pages) / max(len(visual_pages), 1)
+    expected = {"chart_bar": "chart", "chart_line": "chart",
+                "chart_pie": "chart", "flowchart": "flowchart"}
+    kinds = {}
+    for t in truths:
+        for v in t.visuals:
+            kinds.setdefault(t.page_no + 1, []).append(v.kind)
+    hits = total = 0
+    for s in segs:
+        for k in kinds.get(s.page_no, []):
+            if k in expected:
+                total += 1
+                hits += str(getattr(s.segment_type, "value", s.segment_type)) == expected[k]
+    emit("e2e_64page", pages=st.pages, regions=st.regions, segments=len(segs),
+         errors=st.errors, chunks=chunks, launches=launches, outputs_written=written,
+         visual_page_recall=recall, classified=[hits, total],
+         wall_s=wall, pages_per_s=st.pages / wall,
+         host_stage_s=dict(sorted(stage_s.items(), key=lambda kv: -kv[1])),
+         **CARD)
+    if st.errors or not segs or not written:
+        return fail("64-page run had errors, no segments, or no outputs")
+    if launches["cc"] < 4 * chunks or launches["edge_stats"] < chunks or chunks == 0:
+        return fail(f"kernel launches {launches} too few for {chunks} chunks")
+    if recall < 0.95 or total == 0 or hits / total < 0.75:
+        return fail(f"quality: recall {recall:.3f}, classified {hits}/{total}")
+
+    if "--profile" in sys.argv[1:]:
+        # optional: one more 64-page run under torch.profiler, for the
+        # device-busy share and device time by kernel (not the timed run)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, pwall = run(book64, os.path.join(tmp, "o64p"), "cuda")
+        rows = []
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            if dev_us > 0:
+                rows.append((dev_us, ev.key, ev.count))
+        rows.sort(reverse=True)
+        busy_s = sum(r[0] for r in rows) / 1e6
+        prof.export_chrome_trace(os.path.join(out_dir, "chip_smoke_trace.json"))
+        emit("profile_64page", wall_s=pwall, device_busy_s=busy_s,
+             device_busy_share=busy_s / pwall,
+             top=[{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
+                  for us, k, n in rows[:15]], **CARD)
+
+    print(json.dumps({"kernels": [
+        {"name": "connected_components", "route": "cuda",
+         "source": "synapta_tpu_torch/csrc/cc.cu",
+         "replaces": "synapta_tpu/ops/pallas_cc.py:100",
+         "launches": launches["cc"], "max_abs_err": cc_err,
+         "ms": cc_ms, "plain_ms": cc_plain_ms},
+        {"name": "fused_edge_stats", "route": "cuda",
+         "source": "synapta_tpu_torch/csrc/edge_stats.cu",
+         "replaces": "synapta_tpu/ops/pallas_kernels.py:162",
+         "launches": launches["edge_stats"], "max_abs_err": edge_err,
+         "ms": edge_ms, "plain_ms": edge_plain_ms},
+    ]}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

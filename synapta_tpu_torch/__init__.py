@@ -1,0 +1,23 @@
+"""synapta_tpu_torch — the PyTorch + CUDA port of synapta_tpu for NVIDIA Hopper.
+
+The JAX package (``synapta_tpu``) stays the reference; this package mirrors
+its module names so each counterpart is easy to find:
+
+  - device.py        explicit device resolution (no silent CPU fallback)
+  - csrc/            hand-written CUDA kernels (sm_90a), built with nvcc at
+                     first use and loaded with ctypes (ops/_build.py)
+  - ops/             image ops in plain PyTorch plus the two kernel wrappers
+                     (connected components, fused edge statistics)
+  - models/          CTC recognizer as an nn.Module and a jax-free reader for
+                     the flax msgpack weight files
+  - ocr/             fused text-line boxes and the batched OCR driver
+  - vision/          classification heuristics over the feature batch
+  - pipeline.py      the streaming orchestrator (public entry point)
+  - cli.py           ``python -m synapta_tpu_torch.cli``
+
+Host-only modules (config, schema, io, detection, captions, heuristics, LLM
+clients, concept linker, charset, profiler) are imported from
+``synapta_tpu`` unchanged; none of them loads JAX.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""models — see the synapta_tpu_torch package docstring."""

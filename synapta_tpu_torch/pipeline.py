@@ -1,0 +1,734 @@
+"""VisualSegmentationPipeline — the public entry point of the PyTorch port.
+
+Counterpart of synapta_tpu/pipeline.py with the same stage queue:
+
+  prepare(N)            host: detect regions, render 512x512 canvases
+  _analyze_dispatch(N)  feed thread: enqueue the fused analyze pass per
+                        16-crop chunk on the device (CC and edge-stats
+                        kernels inside)
+  _ocr_dispatch(N-A)    one device-to-host copy per analyze chunk, cut line
+                        tiles, enqueue the recognizer
+  _enrich_finish(...)   sync recognition, gate, classify, enrich, write
+
+with A = cfg.analyze_depth and R = cfg.recognize_depth. The device is named
+explicitly (``device="cuda"`` raises without CUDA); there is no mesh. The
+enrichment, LLM patching and page-context methods are verbatim copies of the
+JAX pipeline's host code (a test pins each one). Scanned-like crops need the
+DB line detector, which is not ported yet: they raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from synapta_tpu.config import PipelineConfig
+from synapta_tpu.io.ingest import Document, open_pdf
+from synapta_tpu.io.writers import ResultsWriter, segment_id_for_region
+from synapta_tpu.linker.concepts import ConceptLinker
+from synapta_tpu.llm.fake import DisabledClient
+from synapta_tpu.llm.pixtral import PixtralClient, convert_metadata
+from synapta_tpu.ocr import heuristics as H
+from synapta_tpu.schema import OCRResult, VisualSegment, VisualType
+from synapta_tpu.utils.log import PipelineStats, get_logger
+from synapta_tpu.utils.profiler import TIMERS
+from synapta_tpu.vision import captions as cap
+from synapta_tpu.vision.detect import DetectedRegion, DetectionEngine
+from synapta_tpu_torch.device import resolve_device
+from synapta_tpu_torch.ocr.processor import TorchOCR
+from synapta_tpu_torch.vision import classify as C
+from synapta_tpu_torch.vision import local_analysis as LA
+
+log = get_logger("pipeline")
+
+
+class VisualSegmentationPipeline:
+    def __init__(
+        self,
+        book_id: str,
+        pdf_path: str,
+        taxonomy_path: Optional[str] = None,
+        output_dir: str = "extracted_visuals",
+        use_mermaid: bool = True,
+        config: Optional[PipelineConfig] = None,
+        llm_client=None,
+        ocr: Optional[TorchOCR] = None,
+        resume: bool = True,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.cfg = (config or PipelineConfig()).replace(
+            book_id=book_id,
+            pdf_path=pdf_path,
+            taxonomy_path=taxonomy_path,
+            output_dir=output_dir,
+            use_mermaid=use_mermaid,
+        )
+        self.writer = ResultsWriter(book_id, pdf_path, output_dir)
+        self.resume = resume
+        self.doc: Optional[Document] = None
+        self.engine: Optional[DetectionEngine] = None
+        self.ocr = ocr
+        if llm_client is not None:
+            self.llm = llm_client
+        elif self.cfg.use_vision_llm:
+            client = PixtralClient(self.cfg.llm)
+            self.llm = client if client.enabled else DisabledClient()
+        else:
+            self.llm = DisabledClient()
+        self.linker: Optional[ConceptLinker] = None
+        if taxonomy_path:
+            from synapta_tpu.io.xlsx import read_taxonomy
+
+            self.linker = ConceptLinker(read_taxonomy(taxonomy_path), self.cfg.linker)
+        self.segments: List[VisualSegment] = []
+        self.stats = PipelineStats()
+        # late-LLM patching: writer/stats guards + in-flight future tracking
+        self._writer_lock = threading.Lock()
+        from concurrent.futures import ThreadPoolExecutor as _TPE
+
+        # PNG encoders: zlib releases the GIL, so encodes overlap native
+        # renders on the prepare thread
+        self._png_pool = _TPE(max_workers=3, thread_name_prefix="png")
+        # ONE device-feed worker: every device enqueue comes from one
+        # thread, which overlaps the host-side gray/subsample and H2D copy
+        # with detect/render/enrich on the main thread.
+        self._feed_pool = _TPE(max_workers=1, thread_name_prefix="feed")
+        self._inflight: set = set()
+        self._inflight_cv = threading.Condition()
+
+    def close(self) -> None:
+        """Release worker threads (PNG encoders, device feed). Safe to call
+        more than once; also invoked by __del__ for un-closed instances."""
+        for attr in ("_png_pool", "_feed_pool"):
+            pool = getattr(self, attr, None)
+            if pool is not None:
+                pool.shutdown(wait=False)
+                setattr(self, attr, None)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def process(self) -> List[VisualSegment]:
+        """The one public entry point (ref :2721-2761)."""
+        t0 = time.time()
+        recovered = self.writer.load_checkpoint() if self.resume else 0
+        if recovered:
+            log.info("resumed %d segments from checkpoint", recovered)
+        self.writer.initialize()
+        with TIMERS.stage("ingest_open"):
+            self.doc = open_pdf(self.cfg.pdf_path, self.cfg.pdf_password)
+            # SECOND handle for rasterization: each native handle carries
+            # its own mutex, so renders (this handle) proceed concurrently
+            # with the detection engine's metadata calls (self.doc) instead
+            # of serializing on one document lock.
+            self.render_doc = open_pdf(self.cfg.pdf_path,
+                                       self.cfg.pdf_password)
+        self.engine = DetectionEngine(self.doc, self.cfg.detection,
+                                      pixels_doc=self.render_doc)
+        if self.ocr is None:
+            self.ocr = TorchOCR(self.cfg.ocr, device=self.device)
+        n_pages = self.doc.page_count
+        log.info("processing %s: %d pages", self.cfg.pdf_path, n_pages)
+        try:
+            batch = self.cfg.pages_per_batch
+            spans = [
+                range(start, min(start + batch, n_pages))
+                for start in range(0, n_pages, batch)
+            ]
+            # Software pipeline: each stage enqueues device work and
+            # materializes it `analyze_depth` (A) / `recognize_depth` (R)
+            # batches later, so while the host prepares batches
+            # N..N+A-1 the device analyzes batch N and recognizes the one
+            # before it:
+            #   prepare(N) -> analyze_dispatch(N) [feed thread]
+            #   ocr_dispatch(N-A)      [sync analyze, cut tiles, enqueue rec]
+            #   enrich_finish(N-A-R)   [sync rec, gate, enrich, write]
+            from collections import deque
+
+            from synapta_tpu.io.loader import PrepareLoader
+
+            loader = None
+            if self.cfg.loader_workers:
+                loader = PrepareLoader(
+                    self.cfg.pdf_path, self.cfg.detection,
+                    self.cfg.ocr.crop_size, workers=self.cfg.loader_workers,
+                )
+                loader_futs = [
+                    loader.submit(None, span) for span in spans[:2]
+                ]
+
+            depth = max(1, int(self.cfg.analyze_depth))
+            rdepth = max(1, int(self.cfg.recognize_depth))
+            from synapta_tpu.io.loader import ensure_canvas_ring
+
+            ensure_canvas_ring(depth + rdepth + 2)
+            analyzing: deque = deque()  # (prepared, analyze_pending)
+            recognizing: deque = deque()  # states from _ocr_dispatch
+            for i, pages in enumerate(spans):
+                prepared = None
+                try:
+                    if loader is not None:
+                        # keep the pool fed even when a span fails: the
+                        # i+2 submit must happen regardless, or one bad
+                        # prepare starves loader_futs and a later
+                        # loader_futs[i] raises IndexError
+                        if i + 2 < len(spans):
+                            loader_futs.append(
+                                loader.submit(None, spans[i + 2])
+                            )
+                        with TIMERS.stage("prepare_wait"):
+                            prepared = loader_futs[i].result()
+                    else:
+                        prepared = self._prepare_batch(pages)
+                except Exception:
+                    log.exception("prepare failed for batch %s", list(pages))
+                    self.stats.errors += 1
+                self.stats.pages += len(pages)
+                if prepared is not None:
+                    # enqueue from the feed thread: the H2D transfer blocks
+                    # its caller but releases the GIL, so this thread keeps
+                    # doing host work while the canvases stream over
+                    pending_fut = self._feed_pool.submit(
+                        self._analyze_dispatch, prepared[1], prepared[2]
+                    )
+                    analyzing.append((prepared, pending_fut))
+                    self.stats.regions += len(prepared[0])
+                if len(analyzing) > depth:
+                    try:
+                        recognizing.append(
+                            self._ocr_dispatch(*analyzing.popleft())
+                        )
+                    except NotImplementedError:
+                        raise
+                    except Exception:
+                        log.exception("ocr dispatch failed; skipping batch")
+                        self.stats.errors += 1
+                if len(recognizing) > rdepth:
+                    try:
+                        self._enrich_finish(recognizing.popleft())
+                    except Exception:
+                        log.exception("enrich stage failed; skipping batch")
+                        self.stats.errors += 1
+            # drain the pipeline tail (keep FIFO order: everything still
+            # analyzing enters the recognize queue first, then enrich
+            # drains in batch order so writer output stays page-ordered)
+            while analyzing:
+                try:
+                    recognizing.append(
+                        self._ocr_dispatch(*analyzing.popleft())
+                    )
+                except NotImplementedError:
+                    raise
+                except Exception:
+                    log.exception("final ocr dispatch failed")
+                    self.stats.errors += 1
+            while recognizing:
+                try:
+                    self._enrich_finish(recognizing.popleft())
+                except Exception:
+                    log.exception("enrich stage failed; skipping batch")
+                    self.stats.errors += 1
+        finally:
+            self._drain_patches()
+            with TIMERS.stage("finalize"), self._writer_lock:
+                self.writer.finalize()
+            self.stats.wall_s = time.time() - t0
+            log.info(
+                "done: %d pages, %d segments, %.1fs (%.2f pages/s)",
+                self.stats.pages, len(self.writer.segments),
+                self.stats.wall_s, self.stats.pages / max(self.stats.wall_s, 1e-9),
+            )
+        return self.segments
+
+    def _prepare_batch(self, pages: Sequence[int]):
+        """In-process prepare (loader_workers == 0 path, and tests)."""
+        from synapta_tpu.io.loader import prepare_batch
+
+        with TIMERS.stage("prepare_body"):
+            return prepare_batch(
+                self.engine, self.render_doc, self.cfg.detection.render_dpi,
+                self.cfg.ocr.crop_size, pages, png_pool=self._png_pool,
+            )
+
+    def _ocr_dispatch(self, prepared, analyze_pending):
+        """Pipeline stage 2 for one batch: sync its (already-computing)
+        analyze pass, cut line tiles on the host, and ENQUEUE recognition —
+        returns state for _enrich_finish without materializing, so the
+        device recognizes while the host moves on."""
+        if hasattr(analyze_pending, "result"):
+            analyze_pending = analyze_pending.result()
+        with TIMERS.stage("device_pass"):
+            chunk_meta, feat_parts = self._analyze_sync(analyze_pending)
+        regions, canvases, dims, pngs, keep, ctxs = prepared
+        cb = self.cfg.ocr.crop_batch
+        # scanned-like crops (full-page embedded rasters) route through the
+        # DB line detector under line_detector "auto"/"db"; it is not ported
+        # yet, and such a crop must fail loudly rather than be skipped
+        if any(self._scanned_like(r) for r in regions):
+            raise NotImplementedError(
+                "scanned-like crop: the DB line detector is not ported to "
+                "PyTorch yet (see ROADMAP.md)"
+            )
+        overrides: Dict[int, list] = {}
+        items: List[dict] = []
+        reals: List[int] = []
+        for chunk, real, chunk_sizes, boxes, start in chunk_meta:
+            chunk_ctx = None
+            if ctxs is not None:
+                chunk_ctx = ctxs[start : start + real] + [None] * (cb - real)
+            chunk_over = {
+                i - start: overrides[i]
+                for i in range(start, start + real)
+                if i in overrides
+            }
+            items.append(
+                {
+                    "crops": chunk,
+                    "sizes": chunk_sizes,
+                    "render_ctx": chunk_ctx,
+                    "line_boxes": boxes,
+                    "db_override": chunk_over or None,
+                }
+            )
+            reals.append(real)
+        with TIMERS.stage("ocr_dispatch"):
+            ocr_state = self.ocr.group_dispatch(
+                items, submit=self._feed_pool.submit
+            )
+        return prepared, feat_parts, ocr_state, reals
+
+    def _scanned_like(self, region) -> bool:
+        """Pre-OCR scanned-page signal: an embedded raster covering most
+        of the page (make_scanned_book pages measure ~0.69 of page area;
+        charts/photos sit well below scanned_area_frac)."""
+        if self.cfg.ocr.line_detector not in ("auto", "db"):
+            return False
+        if region.extraction_method != "embedded_image":
+            return False
+        bb = region.bbox
+        page_area = max(bb.page_width * bb.page_height, 1.0)
+        return bb.area() / page_area >= self.cfg.ocr.scanned_area_frac
+
+    def _enrich_finish(self, state) -> None:
+        """Pipeline stage 3 for one batch: materialize recognition, gate +
+        assemble OCR results, then run enrichment + writes."""
+        prepared, feat_parts, ocr_state, reals = state
+        with TIMERS.stage("ocr"):
+            grouped = self.ocr.group_sync(ocr_state)
+        ocr_results: List[OCRResult] = []
+        for real, res in zip(reals, grouped):
+            ocr_results.extend(res[:real])
+        feats = {
+            k: np.concatenate([p[k] for p in feat_parts])
+            for k in feat_parts[0]
+        }
+        self._consume_batch(prepared, feats, ocr_results)
+
+    def _consume_batch(self, prepared, feats, ocr_results) -> None:
+        """Enrichment stage for one prepared batch."""
+        regions, canvases, dims, pngs, keep, ctxs = prepared
+        # deferred PNG encodes resolve here, two pipeline stages after
+        # prepare — the encode thread ran during the analyze/recognize
+        # tunnel waits, so this is normally a no-op collect
+        from synapta_tpu.io.loader import resolve_pngs
+
+        pngs = resolve_pngs(pngs)
+        arrows = [
+            C.count_arrows(
+                C.CropFeatures(feats, i, dims[i][0], dims[i][1]),
+                self.cfg.heuristics,
+            )
+            for i in range(len(regions))
+        ]
+        for i, o in enumerate(ocr_results):
+            o.detected_arrows = arrows[i]
+        self.stats.ocr_blocks += sum(len(o.blocks) for o in ocr_results)
+
+        # submit LLM analyses for the whole batch up front (pool overlaps);
+        # segments already checkpointed never re-pay a paid API call.
+        # Pixels are snapshotted ONCE per submitted segment, here at the
+        # submit boundary: canvases are views into the loader's recycled
+        # ring (io/loader.py _lease_canvases), and every deferred read —
+        # a client thread pool, AND the late-patch on_done callback that
+        # submits follow-up calls minutes later — must see these pixels,
+        # not a later batch's. Copying here keeps every client
+        # implementation (including user-supplied llm_client objects)
+        # safe by contract; the same snapshot threads through
+        # _build_segment so follow-ups reuse it.
+        analysis_futures = []
+        snaps: List[Optional[np.ndarray]] = []
+        for i, r in enumerate(regions):
+            snap = None
+            if keep[i] and not self.writer.has_segment(
+                segment_id_for_region(self.cfg.book_id, r, pngs[i])
+            ):
+                snap = self._snap_pixels(canvases[i])
+                analysis_futures.append(
+                    self.llm.submit_comprehensive(snap, ocr_results[i])
+                )
+            else:
+                analysis_futures.append(None)
+            snaps.append(snap)
+
+        for i, r in enumerate(regions):
+            if not keep[i]:
+                continue
+            try:
+                post_write: List[Callable[[], None]] = []
+                with TIMERS.stage("build_segment"):
+                    seg = self._build_segment(
+                    r,
+                    C.CropFeatures(feats, i, dims[i][0], dims[i][1]),
+                    ocr_results[i],
+                    snaps[i] if snaps[i] is not None else canvases[i],
+                    pngs[i],
+                    analysis_futures[i],
+                    post_write,
+                )
+                if seg is not None:
+                    self.segments.append(seg)
+                    with TIMERS.stage("writer_append"), self._writer_lock:
+                        appended = self.writer.append(seg)
+                    if appended:
+                        self.stats.segments += 1
+                    # late-LLM patch registration happens only after the
+                    # segment is durably in the writer (update() must find it)
+                    for cb in post_write:
+                        cb()
+            except Exception:
+                log.exception(
+                    "segment processing failed on page %d", r.page_num
+                )
+                self.stats.errors += 1
+
+    def _analyze_dispatch(self, canvases: np.ndarray, dims: List[tuple]):
+        """Enqueue the fused analyze pass for every fixed-shape chunk and
+        return the pending device tensors WITHOUT waiting: CUDA launches are
+        asynchronous, so the device keeps computing while the host prepares
+        the next super-batch."""
+        from synapta_tpu_torch.ops.features import device_analyze_dispatch
+
+        cb = self.cfg.ocr.crop_batch
+        n = canvases.shape[0]
+        pending = []
+        for start in range(0, n, cb):
+            chunk = canvases[start : start + cb]
+            real = chunk.shape[0]
+            if real < cb:
+                pad = np.full((cb - real,) + chunk.shape[1:], 255, np.uint8)
+                chunk = np.concatenate([chunk, pad])
+            chunk_sizes = dims[start : start + real] + [(1, 1)] * (cb - real)
+            with TIMERS.stage("features_dispatch"):
+                packed = device_analyze_dispatch(
+                    chunk, sizes=np.array(chunk_sizes, np.int32),
+                    device=self.device,
+                )
+            pending.append((chunk, real, chunk_sizes, packed, start))
+        return pending
+
+    def _analyze_sync(self, pending):
+        """Materialize dispatched analyze chunks -> (chunk_meta, feat_parts):
+        one device-to-host copy of the packed tensor per chunk."""
+        from synapta_tpu_torch.ops.features import unpack_analysis
+
+        feat_parts: List[Dict[str, Any]] = []
+        chunk_meta = []
+        for chunk, real, chunk_sizes, packed, start in pending:
+            with TIMERS.stage("features"):
+                f, boxes = unpack_analysis(
+                    packed.cpu().numpy(), chunk.shape[0]
+                )
+            feat_parts.append({k: v[:real] for k, v in f.items()})
+            chunk_meta.append((chunk, real, chunk_sizes, boxes, start))
+        return chunk_meta, feat_parts
+
+    def _snap_pixels(self, pixels: Optional[np.ndarray]):
+        """Copy ring-view pixels for deferred LLM reads. No-op when the
+        client is disabled: nothing will ever read them."""
+        if pixels is None or not self.llm.enabled:
+            return pixels
+        return np.array(pixels, copy=True)
+
+    def _build_segment(
+        self,
+        region: DetectedRegion,
+        f: C.CropFeatures,
+        ocr: OCRResult,
+        canvas: np.ndarray,
+        png: bytes,
+        analysis_future,
+        post_write: Optional[List[Callable[[], None]]] = None,
+    ) -> Optional[VisualSegment]:
+        """Steps 1-9 of the reference per-segment flow (ref :3659-3753).
+
+        The vision-LLM never blocks this path: if the comprehensive call is
+        still in flight, the segment completes with heuristic analysis and
+        is patched via writer.update() when the response lands (SURVEY §7
+        hard part 6); patch registration callables go into ``post_write``
+        so they only run after the writer holds the segment.
+        """
+        cfg = self.cfg
+        sid = segment_id_for_region(cfg.book_id, region, png)
+        if self.writer.has_segment(sid):
+            return None  # resume skip
+        seg = VisualSegment(
+            segment_id=sid,
+            segment_type=VisualType.UNKNOWN,
+            book_id=cfg.book_id,
+            page_no=region.page_num + 1,
+            bbox=region.bbox,
+            caption_text=region.caption_text,
+            figure_number=region.figure_number,
+            reference_keys=list(region.reference_keys),
+            extraction_method=region.extraction_method,
+            confidence=region.confidence,
+            notes=region.notes,
+            ocr_result=ocr,
+        )
+        seg.image_path = self.writer.write_png(sid, png)
+
+        # page context BEFORE any LLM use: the calculation prompt consumes
+        # nearby_text (the reference populated it too late; deliberate fix)
+        seg.heading_path = self._heading_path(region.page_num, seg)
+        seg.nearby_text = self._nearby_text(region.page_num, seg)
+
+        # 2-4(+4.5/6 submissions): analysis + payloads
+        pending = analysis_future is not None and not analysis_future.done()
+        if pending:
+            # complete with heuristic analysis now; patch when the LLM lands
+            self._apply_analysis(seg, None, f, ocr, canvas, submit=False)
+            if post_write is not None:
+                post_write.append(
+                    lambda: self._register_analysis_patch(
+                        seg, analysis_future, f, ocr, canvas
+                    )
+                )
+        else:
+            analysis = analysis_future.result() if analysis_future else None
+            followups = self._apply_analysis(seg, analysis, f, ocr, canvas)
+            if followups:
+                if all(fut.done() for _, fut in followups):
+                    for kind, fut in followups:
+                        self._apply_followup(seg, kind, fut.result())
+                elif post_write is not None:
+                    post_write.append(
+                        lambda: self._register_followups(seg, followups)
+                    )
+
+        # 5: structured text (ref :3720)
+        seg.extracted_text_structured = H.extract_structured_text(
+            ocr, cfg.heuristics.label_max_chars
+        )
+
+        # 7: caption re-detection when pass 1/2 found none (ref :3734)
+        if not seg.caption_text:
+            blocks = self.doc.page_text_blocks(region.page_num)
+            fig_no, caption = cap.detect_caption(
+                blocks, seg.bbox, cfg.detection.caption_proximity
+            )
+            if caption:
+                seg.caption_text = caption
+            if fig_no:
+                seg.figure_number = fig_no
+                seg.reference_keys = cap.reference_keys_for(fig_no)
+
+        # fallback summary if nothing produced one (ref :3723, :3755)
+        if not seg.summary:
+            seg.summary = LA.generate_fallback_summary(seg)
+            seg.summary_confidence = max(seg.summary_confidence, 0.3)
+
+        # 8: concept linking (ref :3749)
+        if self.linker is not None:
+            seg.linked_concept_ids = self.linker.link_concepts(seg)
+            self.stats.concept_links += len(seg.linked_concept_ids)
+        return seg
+
+    def _apply_analysis(self, seg, analysis, f, ocr, canvas, submit=True):
+        """Steps 2-4: apply a comprehensive analysis (LLM result or the
+        heuristic path on fallback/None) and, when ``submit``, submit the
+        type-gated follow-up calls (calculations ref :3699, mermaid
+        ref :3728) as futures. Returns [(kind, future)] follow-ups."""
+        cfg = self.cfg
+        if analysis and analysis.get("method") != "fallback_heuristic":
+            seg.segment_type = analysis["visual_type"]
+            seg.classification_confidence = analysis["confidence"]
+            seg.classification_method = analysis["method"]
+            if analysis["summary"]:
+                seg.summary = analysis["summary"]
+                seg.summary_confidence = analysis["summary_confidence"]
+            payloads = convert_metadata(seg.segment_type, analysis["metadata"])
+            seg.chart_data, seg.diagram_data, seg.image_data, seg.figure_data = payloads
+            self.stats.llm_analyses += 1
+        else:
+            # idempotent: the patch path re-applies the same heuristic when
+            # the LLM call fell back
+            vtype, conf = LA.classify_heuristic(f, ocr, cfg.heuristics)
+            seg.segment_type = vtype
+            seg.classification_confidence = conf
+            seg.classification_method = "heuristic"
+
+        # local CV payloads when missing (old-algo capability, ref §2.2)
+        if cfg.use_local_cv and not any(
+            (seg.chart_data, seg.diagram_data, seg.image_data, seg.figure_data)
+        ):
+            (
+                seg.chart_data,
+                seg.diagram_data,
+                seg.image_data,
+                seg.figure_data,
+            ) = LA.process_for_type(seg.segment_type, f, ocr, cfg.heuristics)
+
+        followups = []
+        if not submit:
+            return followups
+        if seg.segment_type == VisualType.IMAGE and self.llm.enabled:
+            followups.append(
+                ("calc", self.llm.submit_calculations(canvas, ocr, seg.nearby_text))
+            )
+        if cfg.use_mermaid and seg.segment_type in (
+            VisualType.DIAGRAM, VisualType.FLOWCHART
+        ):
+            followups.append(
+                ("mermaid", self.llm.submit_mermaid(canvas, seg.segment_type, ocr))
+            )
+        return followups
+
+    def _apply_followup(self, seg, kind: str, value) -> None:
+        if kind == "calc" and value:
+            if seg.image_data is None:
+                from synapta_tpu.schema import ImageSpecificData
+
+                seg.image_data = ImageSpecificData()
+            if value.get("input_variables"):
+                seg.image_data.input_variables = value["input_variables"]
+            if value.get("output_values"):
+                seg.image_data.output_values = value["output_values"]
+            if value.get("calculation_verification") is not None:
+                seg.image_data.calculation_verification = value[
+                    "calculation_verification"
+                ]
+        elif kind == "mermaid" and value:
+            seg.mermaid_repr = value
+
+    def _relink_and_update(self, seg) -> None:
+        """Re-run the summary fallback + concept linking after a patch (the
+        linker context weighs the summary, ref :2173-2209), then replace the
+        written record."""
+        if not seg.summary:
+            seg.summary = LA.generate_fallback_summary(seg)
+            seg.summary_confidence = max(seg.summary_confidence, 0.3)
+        if self.linker is not None:
+            seg.linked_concept_ids = self.linker.link_concepts(seg)
+        with self._writer_lock:
+            self.writer.update(seg)
+
+    def _register_analysis_patch(self, seg, future, f, ocr, canvas) -> None:
+        with self._inflight_cv:
+            self._inflight.add(future)
+
+        def on_done(fut):
+            try:
+                try:
+                    analysis = fut.result()
+                except Exception:
+                    analysis = None
+                if analysis and analysis.get("method") != "fallback_heuristic":
+                    followups = self._apply_analysis(seg, analysis, f, ocr, canvas)
+                    self._relink_and_update(seg)
+                    self.stats.llm_patches += 1
+                    if followups:
+                        self._register_followups(seg, followups)
+                else:
+                    # LLM fell back; heuristic analysis already applied at
+                    # build time — only the follow-ups remain
+                    followups = self._apply_analysis(
+                        seg, None, f, ocr, canvas
+                    )
+                    if followups:
+                        self._register_followups(seg, followups)
+            except Exception:
+                log.exception("LLM patch failed for %s", seg.segment_id)
+                self.stats.errors += 1
+            finally:
+                with self._inflight_cv:
+                    self._inflight.discard(fut)
+                    self._inflight_cv.notify_all()
+
+        future.add_done_callback(on_done)
+
+    def _register_followups(self, seg, followups) -> None:
+        state = {"n": len(followups)}
+        lock = threading.Lock()
+        with self._inflight_cv:
+            for _, fut in followups:
+                self._inflight.add(fut)
+
+        def on_done(fut, kind):
+            try:
+                try:
+                    value = fut.result()
+                except Exception:
+                    value = None
+                with lock:
+                    self._apply_followup(seg, kind, value)
+                    state["n"] -= 1
+                    last = state["n"] == 0
+                if last:
+                    self._relink_and_update(seg)
+                    self.stats.llm_patches += 1
+            except Exception:
+                log.exception("LLM follow-up failed for %s", seg.segment_id)
+                self.stats.errors += 1
+            finally:
+                with self._inflight_cv:
+                    self._inflight.discard(fut)
+                    self._inflight_cv.notify_all()
+
+        for kind, fut in followups:
+            fut.add_done_callback(lambda fu, k=kind: on_done(fu, k))
+
+    def _drain_patches(self) -> None:
+        """Block until every in-flight LLM patch has landed (bounded by the
+        client's own timeout*retries, plus margin)."""
+        t0 = time.time()
+        deadline = t0 + (
+            self.cfg.llm.comprehensive_timeout * self.cfg.llm.max_retries + 120
+        )
+        with self._inflight_cv:
+            while self._inflight and time.time() < deadline:
+                self._inflight_cv.wait(timeout=5.0)
+            self.stats.llm_unpatched = len(self._inflight)
+            if self._inflight:
+                log.warning(
+                    "%d LLM patches still in flight at shutdown; finalizing "
+                    "with their pre-patch records", len(self._inflight),
+                )
+        self.stats.llm_drain_wait_s = round(time.time() - t0, 3)
+
+    def _heading_path(self, page_num: int, seg: VisualSegment) -> List[str]:
+        """Large-font spans above the visual, last 3 (ref :3804-3825)."""
+        ctx = self.cfg.context
+        headings = []
+        for s in self.doc.page_spans(page_num):
+            if s["bbox"][3] < seg.bbox.y0:
+                text = (s.get("text") or "").strip()
+                if s.get("size", 0) > ctx.heading_min_font and len(text) > 3:
+                    headings.append(text)
+        return headings[-ctx.heading_max_path:] if headings else []
+
+    def _nearby_text(self, page_num: int, seg: VisualSegment) -> str:
+        """Text blocks within 100pt vertically, 500-char cap (ref :3827-3850)."""
+        ctx = self.cfg.context
+        near = []
+        for b in self.doc.page_text_blocks(page_num):
+            bb = b["bbox"]
+            vdist = min(abs(bb[1] - seg.bbox.y1), abs(seg.bbox.y0 - bb[3]))
+            if vdist < ctx.nearby_distance:
+                near.append((b.get("text") or "").strip())
+        return " ".join(near)[: ctx.nearby_max_chars]

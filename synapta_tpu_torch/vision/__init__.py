@@ -1,0 +1,1 @@
+"""vision — see the synapta_tpu_torch package docstring."""
