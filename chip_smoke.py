@@ -4,10 +4,13 @@
     python3 chip_smoke.py [--profile]
 
 Builds both CUDA kernels from synapta_tpu_torch/csrc, checks each against
-its plain PyTorch twin at the main path's shapes, checks the recognizer in
-bf16 on the GPU against float32 on the CPU, then drives
-VisualSegmentationPipeline(device="cuda") end to end: a 4-page book on the
-GPU and on the CPU (segments must match), and a 64-page book at the
+its plain PyTorch twin at the main path's shapes (the CC kernel also on a
+random mask that does not settle within the cap, and its rounds against the
+twin's), times each beside its plain twin and its bound (the least time the
+card could take: bytes over HBM rate against operations over peak rate),
+checks the recognizer in bf16 on the GPU against float32 on the CPU, then
+drives VisualSegmentationPipeline(device="cuda") end to end: a 4-page book
+on the GPU and on the CPU (segments must match), and a 64-page book at the
 production chunk shapes. Every phase prints one JSON line; any failure
 exits nonzero. The last line is
 
@@ -29,6 +32,19 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 42
 CARD = {}  # name and power limit, repeated on every line with a time
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM3
+# bytes/s, and float32 operations/s outside the tensor cores (also used for
+# the CC kernel's 32-bit integer compares and maxes).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms the card could take, "bytes" or "operations"): each input
+    byte read once and each output byte written once over the memory rate,
+    against the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def emit(phase: str, **kw) -> None:
@@ -65,10 +81,10 @@ def rendered_crops(pdf: str, pages, n: int = 16):
     (h, w), through the port's host prepare stage (detect + render)."""
     import numpy as np
 
-    from synapta_tpu.config import PipelineConfig
-    from synapta_tpu.io.ingest import open_pdf
-    from synapta_tpu.io.loader import prepare_batch
-    from synapta_tpu.vision.detect import DetectionEngine
+    from synapta_tpu_torch.config import PipelineConfig
+    from synapta_tpu_torch.io.ingest import open_pdf
+    from synapta_tpu_torch.io.loader import prepare_batch
+    from synapta_tpu_torch.vision.detect import DetectionEngine
 
     cfg = PipelineConfig()
     render_doc = open_pdf(pdf)
@@ -137,7 +153,7 @@ def main() -> int:
         f.write(_build.build_log())
     emit("build", seconds=build_s, library=_build.library_path().name)
 
-    from synapta_tpu.io.pdf_writer import make_test_book
+    from synapta_tpu_torch.io.pdf_writer import make_test_book
     from synapta_tpu_torch.ocr.linedet import fuse_text_mask
     from synapta_tpu_torch.ops.cc import connected_components_reference
     from synapta_tpu_torch.ops.cuda_cc import connected_components_cuda
@@ -171,28 +187,47 @@ def main() -> int:
     gen = np.random.default_rng(SEED)
     rand = torch.from_numpy(
         (gen.random((16, 256, 256)) < 0.45).astype(np.float32)).to(dev)
-    cc_rows, cc_err, cc_ms, cc_plain_ms = [], 0, 0.0, 0.0
+    cc_rows, cc_err, cc_ms, cc_plain_ms, cc_bound_ms = [], 0, 0.0, 0.0, 0.0
+    cc_ops = cc_bytes = 0.0
     for site, (mask, iters, conn) in main_masks.items():
         mask = mask.contiguous()
+        rounds = {}
+        # the random mask does not settle within the cap: the fixed-round case
         for kind, m in (("rendered", mask), ("random", rand)):
-            got = connected_components_cuda(m, iters, conn)
+            got, k_rounds = connected_components_cuda(m, iters, conn,
+                                                      return_rounds=True)
             torch.cuda.synchronize()
-            want = connected_components_reference(m, iters, conn)
+            want, p_rounds = connected_components_reference(m, iters, conn,
+                                                            return_rounds=True)
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
             cc_err = max(cc_err, err)
-            if err:
-                emit("cc", site=site, input=kind, mismatched=int((got != want).sum()))
+            rounds[kind] = k_rounds.cpu().tolist()
+            if err or rounds[kind] != p_rounds.tolist():
+                emit("cc", site=site, input=kind, mismatched=int((got != want).sum()),
+                     rounds=rounds[kind], twin_rounds=p_rounds.tolist())
                 return fail(f"cc kernel != twin at {site} ({kind})")
         k_ms = cuda_ms(lambda: connected_components_cuda(mask, iters, conn))
         p_ms = cuda_ms(lambda: connected_components_reference(mask, iters, conn))
+        # bound: the mask in, labels and rounds out; 32-bit compares and maxes
+        # per pixel per round (8 for the 3x3 max, 2 for each of four scans)
+        B, H, W = mask.shape
+        ops = sum(rounds["rendered"]) * H * W * ((8 if conn == 8 else 0) + 8)
+        b_ms, b_by = bound(B * H * W * 8 + B * 4, ops)
+        cc_bytes += B * H * W * 8 + B * 4
         cc_ms += k_ms
         cc_plain_ms += p_ms
+        cc_bound_ms += b_ms
+        cc_ops += ops
         cc_rows.append({"site": site, "shape": list(mask.shape), "max_iters": iters,
                         "connectivity": conn, "components": int(
                             connected_components_cuda(mask, iters, conn).unique().numel() - 1),
-                        "ms": k_ms, "plain_ms": p_ms})
+                        "rounds": rounds["rendered"], "random_rounds": rounds["random"],
+                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by})
+    cc_bound_by = bound(cc_bytes, cc_ops)[1]
     emit("cc", exact=True, sites=cc_rows, ms_per_chunk=cc_ms,
-         plain_ms_per_chunk=cc_plain_ms, **CARD)
+         plain_ms_per_chunk=cc_plain_ms, bound_ms_per_chunk=cc_bound_ms,
+         bound_share=cc_bound_ms / cc_ms, **CARD)
 
     # ----------------------------------------------------- 3. edge stats
     gray = gray_u8.to(torch.float32)
@@ -209,11 +244,17 @@ def main() -> int:
         return fail("blank crop has nonzero edge counts")
     edge_ms = cuda_ms(lambda: fused_edge_stats_cuda(gray))
     edge_plain_ms = cuda_ms(lambda: fused_edge_stats_reference(gray))
+    # bound: the gray batch in, (B, 5) counts out; 60 float32 operations a
+    # pixel (the Pallas kernel's CostEstimate)
+    edge_bound_ms, edge_bound_by = bound(gray.numel() * 4 + got.numel() * 4,
+                                         60.0 * gray.numel())
     emit("edge_stats", exact=True, shape=list(gray.shape),
-         counts_crop0=got[0].tolist(), ms=edge_ms, plain_ms=edge_plain_ms, **CARD)
+         counts_crop0=got[0].tolist(), ms=edge_ms, plain_ms=edge_plain_ms,
+         bound_ms=edge_bound_ms, bound_by=edge_bound_by,
+         bound_share=edge_bound_ms / edge_ms, **CARD)
 
     # ----------------------------------------------------- 4. recognizer
-    from synapta_tpu.config import OCRConfig
+    from synapta_tpu_torch.config import OCRConfig
     from synapta_tpu_torch.models.msgpack_io import load_params
     from synapta_tpu_torch.models.recognizer import recognizer_from_flax
     from synapta_tpu_torch.ocr.processor import TorchOCR
@@ -244,9 +285,9 @@ def main() -> int:
         return fail(f"recognizer agreement {agree:.3f} < 0.95")
 
     # ------------------------------------------------------------ 5. e2e
-    from synapta_tpu.config import PipelineConfig
-    from synapta_tpu.llm.fake import DisabledClient
-    from synapta_tpu.utils.profiler import TIMERS
+    from synapta_tpu_torch.config import PipelineConfig
+    from synapta_tpu_torch.llm.fake import DisabledClient
+    from synapta_tpu_torch.utils.profiler import TIMERS
     from synapta_tpu_torch.pipeline import VisualSegmentationPipeline
 
     def run(pdf, out, device):
@@ -350,12 +391,14 @@ def main() -> int:
          "source": "synapta_tpu_torch/csrc/cc.cu",
          "replaces": "synapta_tpu/ops/pallas_cc.py:100",
          "launches": launches["cc"], "max_abs_err": cc_err,
-         "ms": cc_ms, "plain_ms": cc_plain_ms},
+         "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound_ms,
+         "bound_by": cc_bound_by, "library_ms": None},
         {"name": "fused_edge_stats", "route": "cuda",
          "source": "synapta_tpu_torch/csrc/edge_stats.cu",
          "replaces": "synapta_tpu/ops/pallas_kernels.py:162",
          "launches": launches["edge_stats"], "max_abs_err": edge_err,
-         "ms": edge_ms, "plain_ms": edge_plain_ms},
+         "ms": edge_ms, "plain_ms": edge_plain_ms, "bound_ms": edge_bound_ms,
+         "bound_by": edge_bound_by, "library_ms": None},
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

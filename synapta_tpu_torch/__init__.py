@@ -15,9 +15,15 @@ its module names so each counterpart is easy to find:
   - pipeline.py      the streaming orchestrator (public entry point)
   - cli.py           ``python -m synapta_tpu_torch.cli``
 
-Host-only modules (config, schema, io, detection, captions, heuristics, LLM
-clients, concept linker, charset, profiler) are imported from
-``synapta_tpu`` unchanged; none of them loads JAX.
+  - config.py, schema.py, io/, utils/, llm/, linker/, models/charset.py,
+    vision/{detect,captions}.py, ocr/heuristics.py
+                     the host-only modules, verbatim copies of the JAX
+                     package's (tests/test_torch_pipeline.py pins them)
+
+The port imports nothing of ``synapta_tpu``. Two files of its tree are read
+by path from the repo root: the native PDF engine binary
+(``synapta_tpu/io/_pdf_native.so``, built by ``native/Makefile``) and the
+weight files (``synapta_tpu/models/weights/*.msgpack``).
 """
 
 __version__ = "0.1.0"

@@ -46,7 +46,7 @@ def main(argv=None) -> int:
 
         ensure_native_engine(["-m", "synapta_tpu_torch.cli", *sys.argv[1:]])
 
-    from synapta_tpu.config import PipelineConfig
+    from synapta_tpu_torch.config import PipelineConfig
     from synapta_tpu_torch.pipeline import VisualSegmentationPipeline
 
     cfg = PipelineConfig(
@@ -67,7 +67,7 @@ def main(argv=None) -> int:
     )
     pipe.process()
     if args.stats_json:
-        from synapta_tpu.utils.profiler import TIMERS
+        from synapta_tpu_torch.utils.profiler import TIMERS
 
         stats = pipe.stats.as_dict()
         stats["stage_s"] = {

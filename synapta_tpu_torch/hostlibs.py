@@ -20,10 +20,12 @@ _MARK = "SYNAPTA_LIBJPEG_SHIM"
 
 
 def _native_so() -> str:
-    import synapta_tpu
+    # The engine binary stays in the JAX package's tree, where native/Makefile
+    # builds it; the port's ingest reads it by file path from the repo root
+    # (SPDF_NATIVE_SO overrides it) and never imports that package.
+    from synapta_tpu_torch.io.ingest import _SO_PATH
 
-    return os.path.join(os.path.dirname(synapta_tpu.__file__), "io",
-                        "_pdf_native.so")
+    return _SO_PATH
 
 
 def ensure_native_engine(argv) -> None:
@@ -60,12 +62,12 @@ def ensure_native_engine(argv) -> None:
 
 
 def ensure_fixture_fonts() -> None:
-    """``synapta_tpu.io.pdf_writer.make_test_book`` embeds DejaVu Sans from
+    """``synapta_tpu_torch.io.pdf_writer.make_test_book`` embeds DejaVu Sans from
     /usr/share/fonts. Where that file is missing, write the TrueType font
     Pillow embeds for ``ImageFont.load_default`` into the checkout and point
     the fixture writer at it (regular and bold alike). Only the synthetic
     test books are affected; user PDFs carry their own fonts."""
-    import synapta_tpu.io.pdf_writer as pw
+    import synapta_tpu_torch.io.pdf_writer as pw
 
     try:
         import fontTools.ttLib  # noqa: F401

@@ -12,12 +12,13 @@ import struct
 
 import numpy as np
 
-import synapta_tpu
-from synapta_tpu.models.charset import NUM_CLASSES
+from synapta_tpu_torch.models.charset import NUM_CLASSES
 
+# The port shares the JAX package's weight files: they are read by file path
+# from the repo root (<repo>/synapta_tpu/models/weights/), never imported.
 WEIGHTS_PATH = os.path.join(
-    os.path.dirname(synapta_tpu.__file__), "models", "weights",
-    "recognizer.msgpack",
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "synapta_tpu", "models", "weights", "recognizer.msgpack",
 )
 
 _EXT_NDARRAY = 1

@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from synapta_tpu.models.charset import NUM_CLASSES
+from synapta_tpu_torch.models.charset import NUM_CLASSES
 
 
 def _same_pad(n: int, stride: int, k: int = 3):

@@ -15,12 +15,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from synapta_tpu.config import OCRConfig
-from synapta_tpu.models.charset import BLANK
-from synapta_tpu.ocr import heuristics as H
-from synapta_tpu.schema import OCRResult
+from synapta_tpu_torch.config import OCRConfig
 from synapta_tpu_torch.device import resolve_device
+from synapta_tpu_torch.models.charset import BLANK
+from synapta_tpu_torch.ocr import heuristics as H
 from synapta_tpu_torch.ocr.linedet import detect_lines
+from synapta_tpu_torch.schema import OCRResult
 
 _DB_MISSING = (
     "the DB line detector (models/detector.py) is not ported to PyTorch yet; "
@@ -165,7 +165,7 @@ class TorchOCR:
     def recognize_sync(pending) -> List[Dict]:
         """Host half: copy each dispatched batch to the host (one copy per
         batch) and CTC-decode (batched numpy greedy decode)."""
-        from synapta_tpu.models.charset import decode_greedy_batch
+        from synapta_tpu_torch.models.charset import decode_greedy_batch
 
         out: List[Dict] = []
         for dev_packed, chunk_n, pad_n in pending:
@@ -238,7 +238,7 @@ class TorchOCR:
                 for j, i in enumerate(idx):
                     if db_boxes[j]:  # keep heuristic boxes on a dry miss
                         per_crop_boxes[i] = db_boxes[j]
-        from synapta_tpu.utils.profiler import TIMERS
+        from synapta_tpu_torch.utils.profiler import TIMERS
 
         tiles, owners, boxes_flat, parts = [], [], [], []
         with TIMERS.stage("ocr_tile_prep"):
@@ -281,7 +281,7 @@ class TorchOCR:
             else:
                 boxes[i] = (int(x0), int(y0), int(x1), int(y1))
         try:
-            from synapta_tpu.io.ingest import line_tiles_native
+            from synapta_tpu_torch.io.ingest import line_tiles_native
 
             res = line_tiles_native(
                 src, boxes, cfg.line_height, cfg.line_max_width
@@ -500,7 +500,7 @@ class TorchOCR:
 
     def group_sync(self, state) -> List[List[OCRResult]]:
         """Host half: materialize recognition, gate, assemble OCRResults."""
-        from synapta_tpu.utils.profiler import TIMERS
+        from synapta_tpu_torch.utils.profiler import TIMERS
 
         items, spans, metas, pending = state
         if pending is not None and hasattr(pending, "result"):
@@ -542,7 +542,7 @@ class TorchOCR:
         analysis pass — skips the separate line-detection dispatch.
         ``db_mask``: per-crop scanned-like flags (DB detector override).
         """
-        from synapta_tpu.utils.profiler import TIMERS
+        from synapta_tpu_torch.utils.profiler import TIMERS
 
         tiles, owners, boxes_flat, parts = self.collect_tiles(
             crops, render_ctx, line_boxes, db_mask

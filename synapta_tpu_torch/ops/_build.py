@@ -40,12 +40,12 @@ _F = ctypes.c_float
 # c_void_p (a bare Python int would be cut to 32 bits); each returns the
 # cudaError_t of its launches as an int (0 = success).
 SIGNATURES = {
-    # mask, labels, scratch, B, H, W, rounds, connectivity, stream
+    # H, W, &cluster, &smem_bytes
+    "synapta_cc_plan": [_I, _I, _P, _P],
+    # mask, labels, rounds_out, B, H, W, max_rounds, connectivity, stream
     "synapta_cc": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # gray, out, mag, sector, code, edges, eroded, counts, B, H, W, line_k,
-    # grid_k, high, low, stream
-    "synapta_edge_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _F, _F, _P],
+    # gray, out, edge_bits, B, H, W, line_k, grid_k, high, low, stream
+    "synapta_edge_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
 }
 
 _LOCK = threading.Lock()

@@ -41,13 +41,15 @@ def _neighbor_max(lbl: torch.Tensor) -> torch.Tensor:
 
 
 def connected_components_reference(mask: torch.Tensor, max_iters: int = 64,
-                                   connectivity: int = 8) -> torch.Tensor:
+                                   connectivity: int = 8,
+                                   return_rounds: bool = False):
     """Plain twin of the CC kernel. (B, H, W) {0,1} mask -> int32 labels.
 
     Runs step(init) and then at most ``max_iters`` more rounds, stopping at
-    a fixed point like the JAX while_loop; the kernel always runs all
-    max_iters + 1 rounds, which gives the same labels (a fixed point stays
-    fixed)."""
+    a fixed point like the JAX while_loop (and like the kernel, which stops
+    each map at its own). With ``return_rounds`` also the (B,) int32 rounds
+    each map took: 1 + the rounds up to and including the first that left
+    it unchanged, or max_iters + 1."""
     B, H, W = mask.shape
     m = (mask != 0).to(torch.int64)
     ids = torch.arange(1, H * W + 1, dtype=torch.int64,
@@ -63,12 +65,16 @@ def connected_components_reference(mask: torch.Tensor, max_iters: int = 64,
         return lbl
 
     lbl = step(ids * m)
-    for _ in range(max_iters):
+    rounds = torch.full((B,), max_iters + 1, dtype=torch.int32)
+    for i in range(max_iters):
         new = step(lbl)
-        if torch.equal(new, lbl):
+        same = (new == lbl).flatten(1).all(1).cpu()
+        rounds = torch.where(same & (rounds > i + 2), i + 2, rounds)
+        if bool(same.all()):
             break
         lbl = new
-    return lbl.to(torch.int32)
+    lbl = lbl.to(torch.int32)
+    return (lbl, rounds) if return_rounds else lbl
 
 
 def connected_components(mask: torch.Tensor, max_iters: int = 64,

@@ -21,7 +21,7 @@ def gray_quarter_host(rgb):
 
     if rgb.ndim == 4 and rgb.shape[-1] == 3 and rgb.dtype == np.uint8:
         try:
-            from synapta_tpu.io.ingest import gray_quarter_native
+            from synapta_tpu_torch.io.ingest import gray_quarter_native
 
             return gray_quarter_native(rgb)
         except Exception:

@@ -103,16 +103,14 @@ def fused_edge_stats_cuda(gray: torch.Tensor, line_k: int = 20,
     B, H, W = gray.shape
     dev = gray.device
     out = torch.empty((B, 5), dtype=torch.float32, device=dev)
-    mag = torch.empty((B, H, W), dtype=torch.float32, device=dev)
-    maps = torch.empty((4, B, H, W), dtype=torch.uint8, device=dev)
-    counts = torch.empty((B, 5), dtype=torch.int32, device=dev)
+    # the edge map, bit-packed: bit x % 32 of word x // 32 of each row
+    edge_bits = torch.empty((B, H, (W + 31) // 32), dtype=torch.int32,
+                            device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.synapta_edge_stats(
-            gray.data_ptr(), out.data_ptr(), mag.data_ptr(),
-            maps[0].data_ptr(), maps[1].data_ptr(), maps[2].data_ptr(),
-            maps[3].data_ptr(), counts.data_ptr(),
+            gray.data_ptr(), out.data_ptr(), edge_bits.data_ptr(),
             B, H, W, line_k, grid_k, float(high), float(high / 3.0), stream,
         )
     _build.check(err, "synapta_edge_stats")

@@ -24,22 +24,22 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from synapta_tpu.config import PipelineConfig
-from synapta_tpu.io.ingest import Document, open_pdf
-from synapta_tpu.io.writers import ResultsWriter, segment_id_for_region
-from synapta_tpu.linker.concepts import ConceptLinker
-from synapta_tpu.llm.fake import DisabledClient
-from synapta_tpu.llm.pixtral import PixtralClient, convert_metadata
-from synapta_tpu.ocr import heuristics as H
-from synapta_tpu.schema import OCRResult, VisualSegment, VisualType
-from synapta_tpu.utils.log import PipelineStats, get_logger
-from synapta_tpu.utils.profiler import TIMERS
-from synapta_tpu.vision import captions as cap
-from synapta_tpu.vision.detect import DetectedRegion, DetectionEngine
+from synapta_tpu_torch.config import PipelineConfig
 from synapta_tpu_torch.device import resolve_device
+from synapta_tpu_torch.io.ingest import Document, open_pdf
+from synapta_tpu_torch.io.writers import ResultsWriter, segment_id_for_region
+from synapta_tpu_torch.linker.concepts import ConceptLinker
+from synapta_tpu_torch.llm.fake import DisabledClient
+from synapta_tpu_torch.llm.pixtral import PixtralClient, convert_metadata
+from synapta_tpu_torch.ocr import heuristics as H
 from synapta_tpu_torch.ocr.processor import TorchOCR
+from synapta_tpu_torch.schema import OCRResult, VisualSegment, VisualType
+from synapta_tpu_torch.utils.log import PipelineStats, get_logger
+from synapta_tpu_torch.utils.profiler import TIMERS
+from synapta_tpu_torch.vision import captions as cap
 from synapta_tpu_torch.vision import classify as C
 from synapta_tpu_torch.vision import local_analysis as LA
+from synapta_tpu_torch.vision.detect import DetectedRegion, DetectionEngine
 
 log = get_logger("pipeline")
 
@@ -80,7 +80,7 @@ class VisualSegmentationPipeline:
             self.llm = DisabledClient()
         self.linker: Optional[ConceptLinker] = None
         if taxonomy_path:
-            from synapta_tpu.io.xlsx import read_taxonomy
+            from synapta_tpu_torch.io.xlsx import read_taxonomy
 
             self.linker = ConceptLinker(read_taxonomy(taxonomy_path), self.cfg.linker)
         self.segments: List[VisualSegment] = []
@@ -151,7 +151,7 @@ class VisualSegmentationPipeline:
             #   enrich_finish(N-A-R)   [sync rec, gate, enrich, write]
             from collections import deque
 
-            from synapta_tpu.io.loader import PrepareLoader
+            from synapta_tpu_torch.io.loader import PrepareLoader
 
             loader = None
             if self.cfg.loader_workers:
@@ -165,7 +165,7 @@ class VisualSegmentationPipeline:
 
             depth = max(1, int(self.cfg.analyze_depth))
             rdepth = max(1, int(self.cfg.recognize_depth))
-            from synapta_tpu.io.loader import ensure_canvas_ring
+            from synapta_tpu_torch.io.loader import ensure_canvas_ring
 
             ensure_canvas_ring(depth + rdepth + 2)
             analyzing: deque = deque()  # (prepared, analyze_pending)
@@ -248,7 +248,7 @@ class VisualSegmentationPipeline:
 
     def _prepare_batch(self, pages: Sequence[int]):
         """In-process prepare (loader_workers == 0 path, and tests)."""
-        from synapta_tpu.io.loader import prepare_batch
+        from synapta_tpu_torch.io.loader import prepare_batch
 
         with TIMERS.stage("prepare_body"):
             return prepare_batch(
@@ -336,7 +336,7 @@ class VisualSegmentationPipeline:
         # deferred PNG encodes resolve here, two pipeline stages after
         # prepare — the encode thread ran during the analyze/recognize
         # tunnel waits, so this is normally a no-op collect
-        from synapta_tpu.io.loader import resolve_pngs
+        from synapta_tpu_torch.io.loader import resolve_pngs
 
         pngs = resolve_pngs(pngs)
         arrows = [
@@ -602,7 +602,7 @@ class VisualSegmentationPipeline:
     def _apply_followup(self, seg, kind: str, value) -> None:
         if kind == "calc" and value:
             if seg.image_data is None:
-                from synapta_tpu.schema import ImageSpecificData
+                from synapta_tpu_torch.schema import ImageSpecificData
 
                 seg.image_data = ImageSpecificData()
             if value.get("input_variables"):

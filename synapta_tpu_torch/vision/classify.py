@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from synapta_tpu.config import HeuristicsConfig
+from synapta_tpu_torch.config import HeuristicsConfig
 
 
 class CropFeatures:

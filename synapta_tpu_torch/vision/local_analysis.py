@@ -14,10 +14,10 @@ from __future__ import annotations
 import re
 from typing import Optional, Tuple
 
-from synapta_tpu.config import HeuristicsConfig
-from synapta_tpu.ocr import heuristics as H
+from synapta_tpu_torch.config import HeuristicsConfig
+from synapta_tpu_torch.ocr import heuristics as H
 from synapta_tpu_torch.ops.kmeans import colors_to_hex
-from synapta_tpu.schema import (
+from synapta_tpu_torch.schema import (
     ChartSpecificData,
     DiagramSpecificData,
     FigureSpecificData,

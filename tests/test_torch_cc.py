@@ -128,3 +128,104 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         tcc.connected_components(m)
 
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's algorithm, modelled in numpy (csrc/cc.cu). Each CTA of a
+# cluster holds a band of rows; a column's forward-then-backward segmented
+# max (= every vertical run gets its max) is taken in each band, then the
+# bands publish their top run's max, bottom run's max and whether the column
+# is all ink, and every band folds the runs that continue from above and
+# below.
+
+def _banded_column_pass(lbl, m, bands):
+    """(H, W) int64 labels, {0,1} mask -> labels after the kernel's
+    two-level column pass with ``bands`` bands of ceil(H / bands) rows."""
+    H = lbl.shape[0]
+    size = -(-H // bands)
+    spans = [(k * size, min(H, (k + 1) * size)) for k in range(bands)]
+    spans = [s for s in spans if s[1] > s[0]]
+    out = np.empty_like(lbl)
+    summaries = []
+    for a, b in spans:  # level 1, inside each band (the twin's own scans)
+        t = torch.from_numpy(lbl[None, a:b])
+        tm = torch.from_numpy(m[None, a:b])
+        t = tcc._seg_max_scan(t, tm, 1, False)
+        out[a:b] = tcc._seg_max_scan(t, tm, 1, True)[0].numpy()
+        summaries.append((out[a].copy(), out[b - 1].copy(),
+                          m[a:b].all(axis=0)))
+    for k, (a, b) in enumerate(spans):  # level 2, the carries
+        up = np.zeros(lbl.shape[1], np.int64)
+        live = np.ones(lbl.shape[1], bool)
+        for j in range(k - 1, -1, -1):
+            v = summaries[j][1]
+            live &= v > 0
+            up = np.where(live, np.maximum(up, v), up)
+            live &= summaries[j][2]
+        dn = np.zeros_like(up)
+        live = np.ones(lbl.shape[1], bool)
+        for j in range(k + 1, len(spans)):
+            v = summaries[j][0]
+            live &= v > 0
+            dn = np.where(live, np.maximum(dn, v), dn)
+            live &= summaries[j][2]
+        full = summaries[k][2]
+        up, dn = np.where(full, np.maximum(up, dn), up), np.where(full, np.maximum(up, dn), dn)
+        band_m = m[a:b].astype(bool)
+        top_run = np.cumprod(band_m, axis=0).astype(bool)
+        bot_run = np.cumprod(band_m[::-1], axis=0)[::-1].astype(bool)
+        seg = out[a:b]
+        seg = np.where(top_run, np.maximum(seg, up), seg)
+        out[a:b] = np.where(bot_run, np.maximum(seg, dn), seg)
+    return out
+
+
+def _column_masks():
+    rng = np.random.default_rng(21)
+    dense = (rng.random((61, 40)) < 0.7).astype(np.int64)
+    bars = (rng.random((64, 48)) < 0.3).astype(np.int64)
+    bars[:, 5] = 1   # a component that spans every band
+    bars[:, 17:19] = 1
+    bars[31:33, 30] = 1  # a run across a band edge only
+    return {"dense": dense, "spanning_bars": bars,
+            "full": np.ones((16, 8), np.int64)}
+
+
+@pytest.mark.parametrize("bands", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", ["dense", "spanning_bars", "full"])
+def test_banded_column_scan_equals_twin(bands, name):
+    m = _column_masks()[name]
+    rng = np.random.default_rng(bands)
+    lbl = rng.integers(1, 1 << 20, m.shape).astype(np.int64) * m
+    t, tm = torch.from_numpy(lbl[None]), torch.from_numpy(m[None])
+    want = tcc._seg_max_scan(tcc._seg_max_scan(t, tm, 1, False), tm, 1, True)
+    got = _banded_column_pass(lbl, m, bands)
+    assert np.array_equal(got, want[0].numpy())
+
+
+def _random_045():
+    rng = np.random.default_rng(45)
+    return (rng.random((1, 256, 256)) < 0.45).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["converges", "cap_bound"])
+def test_twin_stops_at_fixed_point_or_cap(masks, case):
+    """The twin (and the kernel) stop at the fixed point or after max_iters
+    + 1 rounds, whichever comes first; the labels equal JAX's while_loop and
+    the Pallas kernel's fixed rounds either way."""
+    if case == "converges":
+        m, cap, conn = masks["pallas_masks"], 64, 8
+    else:  # a random 0.45-density mask does not settle in 5 rounds
+        m, cap, conn = _random_045(), 4, 8
+    got, rounds = tcc.connected_components_reference(
+        torch.from_numpy(m.copy()), cap, conn, return_rounds=True)
+    if case == "converges":
+        assert int(rounds.max()) < cap + 1
+    else:
+        assert rounds.tolist() == [cap + 1]
+    want = np.asarray(jcc.connected_components(jnp.asarray(m), max_iters=cap,
+                                               connectivity=conn))
+    assert np.array_equal(got.numpy(), want)
+    pallas = np.asarray(connected_components_pallas(
+        jnp.asarray(m), max_iters=cap, connectivity=conn, interpret=True))
+    assert np.array_equal(got.numpy(), pallas)

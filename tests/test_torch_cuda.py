@@ -6,7 +6,8 @@ also runs on a GPU machine without JAX, bypassing the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Inputs are seeded numpy arrays; results must be bit-identical.
+Inputs are seeded numpy arrays and crops drawn with Pillow; results must
+be bit-identical, and the CC kernel's rounds must equal the twin's.
 """
 import numpy as np
 import pytest
@@ -29,16 +30,45 @@ def _masks():
     return [
         blobs,
         (rng.random((16, 256, 256)) < 0.45).astype(np.float32),
+        _drawn(16, 256) / 255.0 < 0.5,  # ink of drawn crops, the main-path shape
+        (rng.random((1, 512, 512)) < 0.5).astype(np.float32),  # detector's size
         (rng.random((2, 37, 53)) < 0.6).astype(np.float32),  # ragged shape
         np.zeros((1, 16, 16), np.float32),
         np.ones((1, 16, 16), np.float32),
     ]
 
 
+def _drawn(n, size):
+    """n white crops with text, rules, boxes and a bar chart drawn in black
+    by Pillow (seeded): the kind of page regions the pipeline renders."""
+    from PIL import Image, ImageDraw
+
+    rng = np.random.default_rng(7)
+    out = np.empty((n, size, size), np.float32)
+    for i in range(n):
+        im = Image.new("L", (size, size), 255)
+        d = ImageDraw.Draw(im)
+        for _ in range(6):
+            x, y = (int(v) for v in rng.integers(0, size - 60, 2))
+            d.text((x, y), "Figure 3.%d  y = x^2" % i, fill=0)
+        for _ in range(3):
+            y = int(rng.integers(0, size))
+            d.line((0, y, size - 1, y), fill=0, width=int(rng.integers(1, 3)))
+            x = int(rng.integers(0, size - 40))
+            d.rectangle((x, y // 2, x + 30, y // 2 + 20), outline=0)
+        for j in range(5):
+            h = int(rng.integers(10, size // 3))
+            d.rectangle((20 + 14 * j, size - h, 30 + 14 * j, size - 1), fill=96)
+        out[i] = np.asarray(im, np.float32)
+    return out
+
+
 def _grays():
     rng = np.random.default_rng(1)
     blocks = rng.integers(0, 2, (4, 64, 64)).repeat(8, 1).repeat(8, 2) * 255.0
+    blank = np.full((1, 512, 512), 255.0, np.float32)
     return [
+        np.concatenate([_drawn(15, 512), blank]),  # the main-path shape
         blocks.astype(np.float32),
         rng.integers(0, 256, (2, 512, 512)).astype(np.float32),
         rng.integers(0, 256, (2, 40, 70)).astype(np.float32),  # ragged shape
@@ -55,10 +85,13 @@ def test_cc_kernel_equals_twin(conn, cap):
     from synapta_tpu_torch.ops.cuda_cc import connected_components_cuda
 
     for m in _masks():
-        x = torch.from_numpy(m).cuda()
-        got = connected_components_cuda(x, cap, conn)
+        x = torch.from_numpy(np.ascontiguousarray(m, np.float32)).cuda()
+        got, rounds = connected_components_cuda(x, cap, conn, return_rounds=True)
         torch.cuda.synchronize()
-        assert torch.equal(got, connected_components_reference(x, cap, conn))
+        want, want_rounds = connected_components_reference(x, cap, conn,
+                                                           return_rounds=True)
+        assert torch.equal(got, want), x.shape
+        assert rounds.cpu().tolist() == want_rounds.tolist(), x.shape
 
 
 @pytest.mark.cuda
@@ -97,3 +130,5 @@ def test_wrappers_count_launches_and_check_inputs():
         connected_components(m.to(torch.float64))  # no silent fallback
     with pytest.raises(ValueError):
         fused_edge_stats(m[:, :, ::2])  # not contiguous
+    with pytest.raises(ValueError):
+        connected_components(torch.ones((1, 2048, 2048), device="cuda"))  # too big

@@ -69,3 +69,106 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         ck.fused_edge_stats(torch.zeros((1, 8, 8), device="meta"))
 
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's opens, modelled in numpy (csrc/edge_stats.cu, es_opens):
+# the edge map is bit-packed (bit x % 32 of word x // 32 of a row); a window
+# of k rows or bits is built by doubling, A_2p[j] = A_p[j] op A_p[j + p]
+# (the last step overlapping to reach k), with funnel shifts across words
+# for the horizontal axis and neutral fill past the map; then it is shifted
+# by k // 2 and masked to the map's width.
+
+def _pack(e):
+    """(H, W) {0,1} -> (H, ceil(W/32)) uint32 words."""
+    H, W = e.shape
+    nw = -(-W // 32)
+    padded = np.zeros((H, nw * 32), np.uint64)
+    padded[:, :W] = e
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    return (padded.reshape(H, nw, 32) * weights).sum(axis=2).astype(np.uint32)
+
+
+def _unpack(words, W):
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(words.shape[0], -1)[:, :W]
+
+
+def _width_mask(nw, W):
+    valid = np.clip(W - 32 * np.arange(nw), 0, 32).astype(np.uint64)
+    return ((np.uint64(1) << valid) - np.uint64(1)).astype(np.uint32)
+
+
+def _ahead(a, s, vert, fill):
+    """Element j + s along the axis (bits [32w + s, 32w + s + 32) of a row)."""
+    H, nw = a.shape
+    if vert:
+        out = np.full_like(a, fill)
+        out[:max(H - s, 0)] = a[s:]
+        return out
+    q, r = s // 32, s % 32
+    ext = np.concatenate([a, np.full((H, q + 2), fill, np.uint32)], axis=1)
+    lo = ext[:, q:q + nw].astype(np.uint64)
+    hi = ext[:, q + 1:q + 1 + nw].astype(np.uint64)
+    return (((hi << np.uint64(32)) | lo) >> np.uint64(r)).astype(np.uint32)
+
+
+def _window_bits(a, k, vert, erode):
+    fill = np.uint32(0xFFFFFFFF if erode else 0)
+    op = np.bitwise_and if erode else np.bitwise_or
+    p = 1
+    while p < k:
+        s = p if 2 * p <= k else k - p
+        a = op(a, _ahead(a, s, vert, fill))
+        p = 2 * p if 2 * p <= k else k
+    return a
+
+
+def _shift_bits(win, h, vert, W):
+    H, nw = win.shape
+    if vert:
+        out = np.zeros_like(win)
+        out[h:] = win[:max(H - h, 0)]
+    else:
+        q, r = h // 32, h % 32
+        ext = np.concatenate([np.zeros((H, q + 1), np.uint32), win], axis=1)
+        hi = ext[:, 1:1 + nw].astype(np.uint64)
+        lo = ext[:, :nw].astype(np.uint64)
+        out = (((hi << np.uint64(32)) | lo) << np.uint64(r) >> np.uint64(32)).astype(np.uint32)
+    return out & _width_mask(nw, W)
+
+
+def _open_bits(e, k, vert):
+    """The kernel's open of a (H, W) {0,1} map: unpacked (H, W) result."""
+    W = e.shape[1]
+    words = _pack(e)
+    nw = words.shape[1]
+    words = words | ~_width_mask(nw, W)  # bits past W: ones for the erode
+    eroded = _shift_bits(_window_bits(words, k, vert, True), k // 2, vert, W)
+    opened = _shift_bits(_window_bits(eroded, k, vert, False), k // 2, vert, W)
+    return _unpack(opened, W)
+
+
+def _edge_maps():
+    rng = np.random.default_rng(9)
+    blocks = rng.integers(0, 2, (2, 16, 16)).repeat(8, 1).repeat(32, 2)
+    runs = np.zeros((1, 128, 512), np.int64)
+    runs[0, 3, 0:45] = 1        # touches the low border: cut by k // 2
+    runs[0, 9, 20:90] = 1       # crosses word boundaries
+    runs[0, 20, 470:512] = 1    # touches the high border
+    runs[0, 30, 31:70] = 1      # exactly 39 long, starting at a word's end
+    runs[0, 0:60, 100] = 1      # vertical, from the top border
+    runs[0, 70:128, 200] = 1    # vertical, to the bottom border
+    runs[0, 40:89, 33] = 1      # vertical, exactly 49 long
+    noise = (rng.random((1, 128, 512)) < 0.9).astype(np.int64)
+    return np.concatenate([blocks, runs, noise])
+
+
+@pytest.mark.parametrize("k", [39, 49])
+@pytest.mark.parametrize("dim", [1, 2])
+def test_bit_packed_opens_equal_twin(k, dim):
+    e = _edge_maps()
+    want = ck._open1d(torch.from_numpy(e.astype(np.float32)), k, dim) > 0
+    for i in range(e.shape[0]):
+        got = _open_bits(e[i], k, vert=dim == 1)
+        assert np.array_equal(got.astype(bool), want[i].numpy()), i

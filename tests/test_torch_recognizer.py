@@ -152,7 +152,7 @@ def test_head_runs_float32_on_bf16_trunk():
 @pytest.fixture(scope="module")
 def real_tiles():
     """~64 real (32, 384) uint8 line tiles cut from rendered crops."""
-    from synapta_tpu.config import OCRConfig
+    from synapta_tpu_torch.config import OCRConfig
     from synapta_tpu_torch.ocr.processor import TorchOCR
     from synapta_tpu_torch.ops.features import analyze, unpack_analysis
 
