@@ -4,25 +4,40 @@
     python3 chip_smoke.py [--profile]
 
 Builds both CUDA kernels from synapta_tpu_torch/csrc, checks each against
-its plain PyTorch twin at the main path's shapes (the CC kernel also on a
-random mask that does not settle within the cap, and its rounds against the
-twin's), times each beside its plain twin and its bound (the least time the
-card could take: bytes over HBM rate against operations over peak rate),
-checks the recognizer in bf16 on the GPU against float32 on the CPU, then
-drives VisualSegmentationPipeline(device="cuda") end to end: a 4-page book
-on the GPU and on the CPU (segments must match), and a 64-page book at the
-production chunk shapes. Every phase prints one JSON line; any failure
-exits nonzero. The last line is
+its plain PyTorch twin at the main path's shapes (the CC kernel at all five
+call sites: the four of the analyze pass and the DB line detector's, also on
+a random mask that does not settle within the cap, and its rounds against
+the twin's), times each beside its plain twin and its bound (the least time
+the card could take: bytes over HBM rate against operations over peak
+rate), checks the recognizer and the DB detector in bf16 on the GPU against
+float32 on the CPU, then drives the port's entry points on the GPU:
+
+- VisualSegmentationPipeline(device="cuda"): a 4-page book on the GPU and on
+  the CPU (segments must match) and a 64-page book at the production chunk
+  shapes;
+- the scanned-page path (full-page rasters through the DB detector under the
+  default line_detector="auto"): a 4-page scanned book on the GPU and on the
+  CPU (segments must match) and a 16-page one through eval.evaluate_scanned
+  (0 errors, CER <= 0.025);
+- serve.BookQueue(device="cuda") over a test book and a scanned book: both
+  done with 0 errors, and a second run skips both.
+
+Kernel launch counters are set to 0 just before each of the 64-page and the
+16-page scanned runs and read just after. Every phase prints one JSON line;
+any failure exits nonzero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
-``--profile`` adds one more 64-page run under torch.profiler (device-busy
-share, device time by kernel; trace in chiprun_out/). There is no CPU fallback: without CUDA the script exits 1 and prints no
-result. Synthetic inputs are made from fixed seeds.
+``--profile`` runs the 64-page book, the 16-page scanned book and one DB
+chunk (model, post stage) once more under torch.profiler (device-busy share,
+device time by kernel; traces in chiprun_out/). There is no CPU fallback:
+without CUDA the script exits 1 and prints no result. Synthetic inputs are
+made from fixed seeds.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,6 +52,12 @@ CARD = {}  # name and power limit, repeated on every line with a time
 # the CC kernel's 32-bit integer compares and maxes).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The DB detector in bf16 on the GPU against float32 on the CPU, on the 16
+# scanned views (the CPU's bf16 against float32 gave 0.99993 of the pixels
+# and 293 of 293 boxes)
+DB_PROB_AGREE_MIN = 0.999
+DB_BOX_MATCH_MIN = 0.95
+SCANNED_CER_MAX = 0.025  # the JAX package's bar, tests/test_detector.py
 
 
 def bound(nbytes: float, ops: float):
@@ -76,11 +97,8 @@ def cuda_ms(fn, runs: int = 10, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def rendered_crops(pdf: str, pages, n: int = 16):
-    """The first n region canvases (B, 512, 512, 3) uint8 and their true
-    (h, w), through the port's host prepare stage (detect + render)."""
-    import numpy as np
-
+def prepare(pdf: str, pages):
+    """The port's host prepare stage (detect + render) over `pages`."""
     from synapta_tpu_torch.config import PipelineConfig
     from synapta_tpu_torch.io.ingest import open_pdf
     from synapta_tpu_torch.io.loader import prepare_batch
@@ -93,6 +111,15 @@ def rendered_crops(pdf: str, pages, n: int = 16):
                              cfg.ocr.crop_size, pages)
     if prepared is None:
         raise RuntimeError(f"no visual regions on pages {list(pages)}")
+    return prepared
+
+
+def rendered_crops(pdf: str, pages, n: int = 16):
+    """The first n region canvases (B, 512, 512, 3) uint8 and their true
+    (h, w), through the port's host prepare stage (detect + render)."""
+    import numpy as np
+
+    prepared = prepare(pdf, pages)
     canvases = np.array(prepared[1][:n])  # copy out of the loader's ring
     dims = [tuple(d) for d in prepared[2][:n]]
     real = canvases.shape[0]
@@ -101,6 +128,23 @@ def rendered_crops(pdf: str, pages, n: int = 16):
         canvases = np.concatenate([canvases, pad])
         dims += [(1, 1)] * (n - real)
     return canvases, np.array(dims, np.int32), real
+
+
+def box_match_share(want, got, iou_min: float = 0.9) -> float:
+    """Share of line boxes (of the longer list, over all crops) that have a
+    partner in the other list at IoU >= iou_min."""
+    def iou(a, b):
+        ix = max(0, min(a[2], b[2]) - max(a[0], b[0]))
+        iy = max(0, min(a[3], b[3]) - max(a[1], b[1]))
+        union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
+                 - ix * iy)
+        return ix * iy / union if union > 0 else 0.0
+
+    hits = total = 0
+    for w, g in zip(want, got):
+        hits += sum(any(iou(a, b) >= iou_min for b in g) for a in w)
+        total += max(len(w), len(g))
+    return hits / max(total, 1)
 
 
 def main() -> int:
@@ -153,7 +197,8 @@ def main() -> int:
         f.write(_build.build_log())
     emit("build", seconds=build_s, library=_build.library_path().name)
 
-    from synapta_tpu_torch.io.pdf_writer import make_test_book
+    from synapta_tpu_torch.io.pdf_writer import make_scanned_book, make_test_book
+    from synapta_tpu_torch.models import detector as D
     from synapta_tpu_torch.ocr.linedet import fuse_text_mask
     from synapta_tpu_torch.ops.cc import connected_components_reference
     from synapta_tpu_torch.ops.cuda_cc import connected_components_cuda
@@ -174,6 +219,21 @@ def main() -> int:
     gray_u8 = torch.from_numpy(gray_np).to(dev)
     rgb_q = torch.from_numpy(rgb_q_np).to(dev)
 
+    # the DB detector's 16-view chunk: 16 scanned pages, one region each;
+    # page-scale scans (ratio > 2) take the canvas path, one 512² view a crop
+    scan16 = os.path.join(tmp, "scan16.pdf")
+    make_scanned_book(scan16, pages=16, seed=SEED)
+    scan_prep = prepare(scan16, range(16))
+    scan_canv = np.array(scan_prep[1])
+    scan_ctxs = list(scan_prep[5])
+    if scan_canv.shape[0] != 16 or not all(c and c[1] > 2.0 for c in scan_ctxs):
+        return fail(f"scanned book: {scan_canv.shape[0]} regions, not 16 "
+                    "canvas-path crops")
+    db_gray = torch.from_numpy(D.DBLineDetector._luma(scan_canv)).to(dev)
+    det = D.DBLineDetector(device="cuda")
+    db_logits_gpu = D.db_logits(det.model, db_gray)
+    db_mask = D.closed_mask(db_logits_gpu, det.prob_thresh)
+
     # ------------------------------------------------------------- 2. cc
     with torch.inference_mode():
         feats = _core_features(gray_u8, rgb_q)
@@ -187,11 +247,12 @@ def main() -> int:
     gen = np.random.default_rng(SEED)
     rand = torch.from_numpy(
         (gen.random((16, 256, 256)) < 0.45).astype(np.float32)).to(dev)
-    cc_rows, cc_err, cc_ms, cc_plain_ms, cc_bound_ms = [], 0, 0.0, 0.0, 0.0
-    cc_ops = cc_bytes = 0.0
-    for site, (mask, iters, conn) in main_masks.items():
+
+    def cc_site(site, mask, iters, conn):
+        """Check one call site against the twin (rendered and random masks),
+        time it; -> (row, None) or (None, failure message)."""
         mask = mask.contiguous()
-        rounds = {}
+        rounds, max_err = {}, 0
         # the random mask does not settle within the cap: the fixed-round case
         for kind, m in (("rendered", mask), ("random", rand)):
             got, k_rounds = connected_components_cuda(m, iters, conn,
@@ -200,34 +261,51 @@ def main() -> int:
             want, p_rounds = connected_components_reference(m, iters, conn,
                                                             return_rounds=True)
             err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-            cc_err = max(cc_err, err)
             rounds[kind] = k_rounds.cpu().tolist()
+            max_err = max(max_err, err)
             if err or rounds[kind] != p_rounds.tolist():
                 emit("cc", site=site, input=kind, mismatched=int((got != want).sum()),
                      rounds=rounds[kind], twin_rounds=p_rounds.tolist())
-                return fail(f"cc kernel != twin at {site} ({kind})")
+                return None, f"cc kernel != twin at {site} ({kind})"
         k_ms = cuda_ms(lambda: connected_components_cuda(mask, iters, conn))
         p_ms = cuda_ms(lambda: connected_components_reference(mask, iters, conn))
         # bound: the mask in, labels and rounds out; 32-bit compares and maxes
         # per pixel per round (8 for the 3x3 max, 2 for each of four scans)
         B, H, W = mask.shape
         ops = sum(rounds["rendered"]) * H * W * ((8 if conn == 8 else 0) + 8)
-        b_ms, b_by = bound(B * H * W * 8 + B * 4, ops)
-        cc_bytes += B * H * W * 8 + B * 4
-        cc_ms += k_ms
-        cc_plain_ms += p_ms
-        cc_bound_ms += b_ms
-        cc_ops += ops
-        cc_rows.append({"site": site, "shape": list(mask.shape), "max_iters": iters,
-                        "connectivity": conn, "components": int(
-                            connected_components_cuda(mask, iters, conn).unique().numel() - 1),
-                        "rounds": rounds["rendered"], "random_rounds": rounds["random"],
-                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": b_by})
+        nbytes = B * H * W * 8 + B * 4
+        b_ms, b_by = bound(nbytes, ops)
+        return {"site": site, "shape": list(mask.shape), "max_iters": iters,
+                "connectivity": conn, "components": int(
+                    connected_components_cuda(mask, iters, conn).unique().numel() - 1),
+                "rounds": rounds["rendered"], "random_rounds": rounds["random"],
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err": max_err, "bytes": nbytes, "ops": ops}, None
+
+    cc_rows, cc_err, cc_ms, cc_plain_ms, cc_bound_ms = [], 0, 0.0, 0.0, 0.0
+    cc_ops = cc_bytes = 0.0
+    for site, (mask, iters, conn) in main_masks.items():
+        row, err_msg = cc_site(site, mask, iters, conn)
+        if err_msg:
+            return fail(err_msg)
+        cc_bytes += row["bytes"]
+        cc_ops += row["ops"]
+        cc_err = max(cc_err, row["max_abs_err"])
+        cc_ms += row["ms"]
+        cc_plain_ms += row["plain_ms"]
+        cc_bound_ms += row["bound_ms"]
+        cc_rows.append(row)
     cc_bound_by = bound(cc_bytes, cc_ops)[1]
     emit("cc", exact=True, sites=cc_rows, ms_per_chunk=cc_ms,
          plain_ms_per_chunk=cc_plain_ms, bound_ms_per_chunk=cc_bound_ms,
          bound_share=cc_bound_ms / cc_ms, **CARD)
+    # the fifth call site, once per 16-view DB chunk (models/detector.py)
+    db_row, err_msg = cc_site("db_boxes", db_mask, 10, 8)
+    if err_msg:
+        return fail(err_msg)
+    cc_err = max(cc_err, db_row["max_abs_err"])
+    emit("cc_db_site", exact=True, **db_row,
+         bound_share=db_row["bound_ms"] / db_row["ms"], **CARD)
 
     # ----------------------------------------------------- 3. edge stats
     gray = gray_u8.to(torch.float32)
@@ -284,7 +362,35 @@ def main() -> int:
     if agree < 0.95:
         return fail(f"recognizer agreement {agree:.3f} < 0.95")
 
-    # ------------------------------------------------------------ 5. e2e
+    # --------------------------------------------------- 5. db detector
+    # bf16 on the card against float32 on the CPU, on the same 16 views
+    cpu_model = D.detector_from_flax(D.load_det_params(), dtype=torch.float32,
+                                     device="cpu")
+    db_logits_cpu = D.db_logits(cpu_model, db_gray.cpu())
+    thresh_logit = math.log(det.prob_thresh / (1.0 - det.prob_thresh))
+    prob_agree = float(((db_logits_gpu.cpu() > thresh_logit)
+                        == (db_logits_cpu > thresh_logit)).float().mean())
+    det_cpu = D.DBLineDetector(device="cpu")
+    det_cpu.model = cpu_model
+    lines_gpu = det.detect_lines(scan_canv, hires=scan_ctxs)
+    lines_cpu = det_cpu.detect_lines(scan_canv, hires=scan_ctxs)
+    box_share = box_match_share(lines_cpu, lines_gpu)
+    db_model_ms = cuda_ms(lambda: D.db_logits(det.model, db_gray))
+    db_post_ms = cuda_ms(lambda: D.mask_boxes(D.closed_mask(db_logits_gpu,
+                                                            det.prob_thresh)))
+    emit("db_detector", views=int(db_gray.shape[0]),
+         view_shape=list(db_gray.shape[1:]),
+         prob_agree_at_thresh=prob_agree, prob_agree_min=DB_PROB_AGREE_MIN,
+         max_abs_logit_diff=float((db_logits_gpu.cpu() - db_logits_cpu).abs().max()),
+         lines=[sum(map(len, lines_gpu)), sum(map(len, lines_cpu))],
+         box_match_share_iou90=box_share, box_match_min=DB_BOX_MATCH_MIN,
+         ms_model=db_model_ms, ms_post=db_post_ms, ms_cc=db_row["ms"],
+         rounds=db_row["rounds"], **CARD)
+    if prob_agree < DB_PROB_AGREE_MIN or box_share < DB_BOX_MATCH_MIN:
+        return fail(f"db detector: prob agreement {prob_agree:.5f}, boxes "
+                    f"matched {box_share:.3f}")
+
+    # ------------------------------------------------------------ 6. e2e
     from synapta_tpu_torch.config import PipelineConfig
     from synapta_tpu_torch.llm.fake import DisabledClient
     from synapta_tpu_torch.utils.profiler import TIMERS
@@ -364,41 +470,165 @@ def main() -> int:
     if recall < 0.95 or total == 0 or hits / total < 0.75:
         return fail(f"quality: recall {recall:.3f}, classified {hits}/{total}")
 
+    # ---------------------------------------------------- 7. e2e scanned
+    scan4 = os.path.join(tmp, "scan4.pdf")
+    make_scanned_book(scan4, pages=4, seed=SEED)
+    p_gpu, s_gpu, w_gpu = run(scan4, os.path.join(tmp, "s4_gpu"), "cuda")
+    p_cpu, s_cpu, w_cpu = run(scan4, os.path.join(tmp, "s4_cpu"), "cpu")
+    same = [key(s) for s in s_gpu] == [key(s) for s in s_cpu]
+    emit("e2e_scanned_4page", segments=len(s_gpu), cuda_equals_cpu=same,
+         errors=[p_gpu.stats.errors, p_cpu.stats.errors],
+         db_bound=[p_gpu.ocr._db_detector is not None,
+                   p_cpu.ocr._db_detector is not None],
+         wall_s_cuda=w_gpu, wall_s_cpu=w_cpu, **CARD)
+    if (not same or len(s_gpu) != 4 or p_gpu.stats.errors or p_cpu.stats.errors
+            or p_gpu.ocr._db_detector is None):
+        return fail("4-page scanned book: cuda and cpu segments differ, "
+                    "errors, or the DB detector never ran")
+
+    # the scanned path through eval.evaluate_scanned: counters start at 0
+    # here and are read right after; its pipeline and DB chunks are recorded
+    import synapta_tpu_torch.pipeline as P
+    from synapta_tpu_torch import eval as E
+
+    pipes, db_chunks = [], []
+    boxes_device = D.boxes_device
+
+    class RecordedPipeline(VisualSegmentationPipeline):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            pipes.append(self)
+
+    def counted_boxes(model, chunk, thresh):
+        db_chunks.append(chunk.shape[0])
+        return boxes_device(model, chunk, thresh)
+
+    P.VisualSegmentationPipeline, D.boxes_device = RecordedPipeline, counted_boxes
+    connected_components_cuda.launches = 0
+    fused_edge_stats_cuda.launches = 0
+    chunks0 = TIMERS.counts.get("features_dispatch", 0)
+    try:
+        scanned = E.evaluate_scanned(pages=16, seed=SEED, device="cuda")
+    finally:
+        P.VisualSegmentationPipeline, D.boxes_device = (VisualSegmentationPipeline,
+                                                        boxes_device)
+    torch.cuda.synchronize()
+    scan_launches = {"cc": connected_components_cuda.launches,
+                     "edge_stats": fused_edge_stats_cuda.launches}
+    scan_chunks = TIMERS.counts.get("features_dispatch", 0) - chunks0
+    sp = pipes[0]
+    sp.close()
+    emit("e2e_scanned_16page", pages=sp.stats.pages, segments=sp.stats.segments,
+         errors=sp.stats.errors, detected=scanned["scanned_detected"],
+         scanned_ocr_cer=scanned["scanned_ocr_cer"], cer_max=SCANNED_CER_MAX,
+         analyze_chunks=scan_chunks, db_chunks=len(db_chunks),
+         db_views=sum(db_chunks), launches=scan_launches,
+         wall_s=sp.stats.wall_s, pages_per_s=sp.stats.pages / sp.stats.wall_s,
+         **CARD)
+    if (sp.stats.errors or scanned["scanned_detected"] != 16
+            or scanned["scanned_ocr_cer"] > SCANNED_CER_MAX):
+        return fail(f"16-page scanned book: {sp.stats.errors} errors, "
+                    f"{scanned['scanned_detected']} pages detected, CER "
+                    f"{scanned['scanned_ocr_cer']}")
+    if (not db_chunks or scan_chunks == 0
+            or scan_launches["cc"] < 4 * scan_chunks + len(db_chunks)
+            or scan_launches["edge_stats"] < scan_chunks):
+        return fail(f"scanned kernel launches {scan_launches} too few for "
+                    f"{scan_chunks} analyze and {len(db_chunks)} DB chunks")
+
+    # ----------------------------------------------------------- 8. serve
+    from synapta_tpu_torch.serve import BookQueue
+
+    serve_root = os.path.join(tmp, "serve")
+    events = os.path.join(serve_root, "queue_events.jsonl")
+
+    def queue_run():
+        q = BookQueue(output_root=serve_root,
+                      config=PipelineConfig(use_vision_llm=False),
+                      llm_client=DisabledClient(), device="cuda")
+        q.add(book4, book_id="book4")
+        q.add(scan4, book_id="scan4")
+        return q.run()
+
+    t = time.perf_counter()
+    first = queue_run()["books"]
+    serve_wall = time.perf_counter() - t
+    n_events = len(open(events).readlines())
+    second = queue_run()["books"]
+    skipped = len(open(events).readlines()) == n_events
+    emit("serve", books={k: {f: r[f] for f in ("status", "pages", "segments",
+                                               "errors", "error")}
+                         for k, r in first.items()},
+         second_run_skipped=skipped, wall_s=serve_wall, **CARD)
+    if (sorted(first) != ["book4", "scan4"]
+            or any(r["status"] != "done" or r["errors"] or not r["segments"]
+                   for r in first.values())
+            or any(r["status"] != "done" for r in second.values()) or not skipped):
+        return fail("serve: a book not done, with errors, or re-run")
+
     if "--profile" in sys.argv[1:]:
-        # optional: one more 64-page run under torch.profiler, for the
-        # device-busy share and device time by kernel (not the timed run)
+        # optional: the 64-page book, the 16-page scanned book and one DB
+        # chunk (model, then post stage) once more under torch.profiler, for
+        # the device-busy share and device time by kernel (not the timed runs)
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, _, pwall = run(book64, os.path.join(tmp, "o64p"), "cuda")
-        rows = []
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                rows.append((dev_us, ev.key, ev.count))
-        rows.sort(reverse=True)
-        busy_s = sum(r[0] for r in rows) / 1e6
-        prof.export_chrome_trace(os.path.join(out_dir, "chip_smoke_trace.json"))
-        emit("profile_64page", wall_s=pwall, device_busy_s=busy_s,
-             device_busy_share=busy_s / pwall,
-             top=[{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
-                  for us, k, n in rows[:15]], **CARD)
+        def profiled(label, fn):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            path = os.path.join(out_dir, f"chip_smoke_trace_{label}.json")
+            prof.export_chrome_trace(path)
+            # device time from the trace's kernel and copy events: the
+            # operator rows of key_averages() repeat their kernels' time
+            by_name = {}
+            with open(path) as f:
+                for ev in json.load(f)["traceEvents"]:
+                    if ev.get("ph") == "X" and ev.get("cat") in (
+                            "kernel", "gpu_memcpy", "gpu_memset"):
+                        us, n = by_name.get(ev["name"], (0.0, 0))
+                        by_name[ev["name"]] = (us + ev["dur"], n + 1)
+            rows = sorted(((us, k, n) for k, (us, n) in by_name.items()),
+                          reverse=True)
+            busy_s = sum(r[0] for r in rows) / 1e6
+            emit(f"profile_{label}", wall_s=wall, device_busy_s=busy_s,
+                 device_busy_share=busy_s / wall,
+                 top=[{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
+                      for us, k, n in rows[:15]], **CARD)
 
+        profiled("64page", lambda: run(book64, os.path.join(tmp, "prof64"), "cuda"))
+        profiled("scanned16", lambda: run(scan16, os.path.join(tmp, "prof_s16"),
+                                          "cuda"))
+        profiled("db_model", lambda: D.db_logits(det.model, db_gray))
+        profiled("db_post", lambda: D.mask_boxes(D.closed_mask(
+            db_logits_gpu, det.prob_thresh)))
+
+    # launches: the 64-page book's and the 16-page scanned book's runs; ms,
+    # plain_ms and bound_ms per analyze chunk (the CC row's four analyze
+    # sites; the DB site per DB chunk under "db_site")
     print(json.dumps({"kernels": [
         {"name": "connected_components", "route": "cuda",
          "source": "synapta_tpu_torch/csrc/cc.cu",
          "replaces": "synapta_tpu/ops/pallas_cc.py:100",
-         "launches": launches["cc"], "max_abs_err": cc_err,
+         "launches": launches["cc"] + scan_launches["cc"], "max_abs_err": cc_err,
          "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound_ms,
-         "bound_by": cc_bound_by, "library_ms": None},
+         "bound_by": cc_bound_by, "library_ms": None, "sites": 5,
+         "launches_by_path": {"book64": launches["cc"],
+                              "scanned16": scan_launches["cc"]},
+         "db_site": {"ms": db_row["ms"], "plain_ms": db_row["plain_ms"],
+                     "bound_ms": db_row["bound_ms"],
+                     "bound_by": db_row["bound_by"]}},
         {"name": "fused_edge_stats", "route": "cuda",
          "source": "synapta_tpu_torch/csrc/edge_stats.cu",
          "replaces": "synapta_tpu/ops/pallas_kernels.py:162",
-         "launches": launches["edge_stats"], "max_abs_err": edge_err,
+         "launches": launches["edge_stats"] + scan_launches["edge_stats"],
+         "max_abs_err": edge_err,
          "ms": edge_ms, "plain_ms": edge_plain_ms, "bound_ms": edge_bound_ms,
-         "bound_by": edge_bound_by, "library_ms": None},
+         "bound_by": edge_bound_by, "library_ms": None,
+         "launches_by_path": {"book64": launches["edge_stats"],
+                              "scanned16": scan_launches["edge_stats"]}},
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -62,11 +62,13 @@ def ensure_native_engine(argv) -> None:
 
 
 def ensure_fixture_fonts() -> None:
-    """``synapta_tpu_torch.io.pdf_writer.make_test_book`` embeds DejaVu Sans from
-    /usr/share/fonts. Where that file is missing, write the TrueType font
-    Pillow embeds for ``ImageFont.load_default`` into the checkout and point
-    the fixture writer at it (regular and bold alike). Only the synthetic
-    test books are affected; user PDFs carry their own fonts."""
+    """The synthetic books (``synapta_tpu_torch.io.pdf_writer``: the test
+    book embeds DejaVu Sans, the scanned book draws its page rasters with
+    it) read DejaVu Sans from the system font directory. Where those files
+    are missing, point the writer at the copies shipped in
+    ``synapta_tpu_torch/fonts/``, so the books are the same on every
+    machine (the recognizer was trained on DejaVu glyphs). User PDFs carry
+    their own fonts."""
     import synapta_tpu_torch.io.pdf_writer as pw
 
     try:
@@ -76,14 +78,11 @@ def ensure_fixture_fonts() -> None:
         pw._CIDFontInfo = _GlyphTable
     if os.path.exists(pw.DEJAVU) and os.path.exists(pw.DEJAVU_BOLD):
         return
-    from PIL import ImageFont
-
-    path = Path(__file__).resolve().parent / "_build" / "fonts" / "default.ttf"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(ImageFont.load_default(size=12).font_bytes)
-    pw.DEJAVU = pw.DEJAVU_BOLD = str(path)
+    fonts = Path(__file__).resolve().parent / "fonts"
+    pw.DEJAVU = str(fonts / "DejaVuSans.ttf")
+    pw.DEJAVU_BOLD = str(fonts / "DejaVuSans-Bold.ttf")
     # text_width binds DEJAVU as its default argument at definition time
-    pw.text_width.__defaults__ = (str(path),)
+    pw.text_width.__defaults__ = (pw.DEJAVU,)
 
 
 class _GlyphTable:

@@ -4,8 +4,9 @@ The device half is ported: the recognizer runs as a PyTorch module on the
 driver's device (``_decode``, ``recognize_dispatch``, ``recognize_sync``).
 The host half (tile cutting, line splitting, confidence gate, result
 assembly) is a verbatim copy of ``TPUOCR``'s methods; a test pins each copy
-to its original. The DB line detector is not ported yet (ROADMAP.md): the
-"db" route raises NotImplementedError.
+to its original. The DB line detector (models/detector.py) runs on the same
+device, bound eagerly for ``line_detector="db"`` and lazily for scanned-like
+crops under ``"auto"``.
 """
 from __future__ import annotations
 
@@ -21,12 +22,6 @@ from synapta_tpu_torch.models.charset import BLANK
 from synapta_tpu_torch.ocr import heuristics as H
 from synapta_tpu_torch.ocr.linedet import detect_lines
 from synapta_tpu_torch.schema import OCRResult
-
-_DB_MISSING = (
-    "the DB line detector (models/detector.py) is not ported to PyTorch yet; "
-    "see ROADMAP.md"
-)
-
 
 class TorchOCR:
     """Loads recognizer weights once; recognizes line batches on ``device``."""
@@ -47,10 +42,15 @@ class TorchOCR:
         self.model = recognizer_from_flax(
             load_params(path), dtype=torch.bfloat16, device=self.device
         )
+        # line detection backend: "heuristic" (ink morphology, exact on
+        # clean renders), "db" (trainable DB-style model,
+        # models/detector.py — the PaddleOCR-DBNet parity path for
+        # degraded/scanned inputs), or "auto" (heuristic except crops
+        # flagged scanned-like by the caller via db_mask)
         self._db_detector = None
         self._det_mode = getattr(cfg, "line_detector", "auto")
         if self._det_mode == "db":
-            raise NotImplementedError(_DB_MISSING)
+            self._db_detector = self.db_detector
 
     @torch.inference_mode()
     def _decode(self, x: torch.Tensor) -> torch.Tensor:
@@ -66,7 +66,14 @@ class TorchOCR:
 
     @property
     def db_detector(self):
-        raise NotImplementedError(_DB_MISSING)
+        """Lazily-bound DB line detector (process-wide singleton: the
+        weights and the jitted boxes program load once)."""
+        if self._db_detector is None:
+            from synapta_tpu_torch.models.detector import get_line_detector
+
+            self._db_detector = get_line_detector(
+                det_size=self.cfg.crop_size, device=self.device)
+        return self._db_detector
 
     def _line_tile(self, crop: np.ndarray, box: List[int],
                    ctx=None) -> np.ndarray:

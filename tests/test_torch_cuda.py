@@ -132,3 +132,32 @@ def test_wrappers_count_launches_and_check_inputs():
         fused_edge_stats(m[:, :, ::2])  # not contiguous
     with pytest.raises(ValueError):
         connected_components(torch.ones((1, 2048, 2048), device="cuda"))  # too big
+
+
+@pytest.mark.cuda
+def test_db_site_cc_equals_twin():
+    """The CC kernel's fifth call site: the DB detector's closed probability
+    mask of 16 drawn 512² views, (16, 256, 256), cap 10, 8-connected. Labels
+    and rounds equal the twin's; the boxes from the GPU equal the boxes the
+    CPU computes from the same mask; the call launches the kernel."""
+    _need_cuda()
+    from synapta_tpu_torch.models import detector as D
+    from synapta_tpu_torch.ops.cc import connected_components_reference
+    from synapta_tpu_torch.ops.cuda_cc import connected_components_cuda
+
+    model = D.detector_from_flax(D.load_det_params(), dtype=torch.bfloat16,
+                                 device="cuda")
+    gray = _drawn(16, 512).astype(np.uint8)
+    mask = D.closed_mask(D.db_logits(model, gray), 0.3)
+    assert mask.is_cuda and tuple(mask.shape) == (16, 256, 256)
+    assert float(mask.sum()) > 0
+    got, rounds = connected_components_cuda(mask, 10, 8, return_rounds=True)
+    torch.cuda.synchronize()
+    want, want_rounds = connected_components_reference(mask, 10, 8,
+                                                       return_rounds=True)
+    assert torch.equal(got, want)
+    assert rounds.cpu().tolist() == want_rounds.tolist()
+    n = connected_components_cuda.launches
+    boxes = D.mask_boxes(mask)
+    assert connected_components_cuda.launches == n + 1
+    assert torch.equal(boxes.cpu(), D.mask_boxes(mask.cpu()))

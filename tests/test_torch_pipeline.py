@@ -7,13 +7,15 @@
 - ``import synapta_tpu_torch.pipeline`` (fresh process) loads no jax/flax
   and no module of the JAX package; no file of the port and not
   chip_smoke.py imports either (read from the syntax tree).
-- Every verbatim host-code copy (functions and whole host modules) equals
-  its original source, except that ``from synapta_tpu`` imports name
-  ``synapta_tpu_torch`` and for the named substitutions (the one device
-  argument of collect_tiles, the engine binary's path, the dropped
-  ``jax_trace``, reference-project files named from its root).
-- No silent fallback: "cuda" raises without CUDA; the DB detector routes
-  raise NotImplementedError.
+- Every verbatim host-code copy (functions, the refine knobs and whole
+  host modules) equals its original source, except that ``from
+  synapta_tpu`` imports name ``synapta_tpu_torch`` and for the named
+  substitutions (the device arguments of collect_tiles, db_detector, the
+  evaluations and the book queue; the DB detector's device dispatch; the
+  engine binary's path; the dropped ``jax_trace``; reference-project files
+  named from its root).
+- No silent fallback: "cuda" raises without CUDA. ``line_detector="db"``
+  binds the DB detector on the OCR's device.
 """
 import ast
 import inspect
@@ -119,7 +121,9 @@ _BANNED = ("synapta_tpu", "jax", "flax", "jaxlib")
 def test_import_is_jax_free():
     code = (
         "import sys, synapta_tpu_torch, synapta_tpu_torch.pipeline, "
-        "synapta_tpu_torch.cli, synapta_tpu_torch.ops.features; "
+        "synapta_tpu_torch.cli, synapta_tpu_torch.ops.features, "
+        "synapta_tpu_torch.models.detector, synapta_tpu_torch.eval, "
+        "synapta_tpu_torch.serve; "
         "print(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {_BANNED!r}))"
     )
@@ -245,7 +249,133 @@ def _copies():
         orig = importlib.import_module(f"synapta_tpu.{name}")
         port = importlib.import_module(f"synapta_tpu_torch.{name}")
         out.append((name, port, orig, _module_subs(name, orig)))
+
+    import synapta_tpu.eval as jev
+    import synapta_tpu.models.detector as jdet
+    import synapta_tpu.models.train as jtrain
+    import synapta_tpu.serve as jserve
+    import synapta_tpu_torch.eval as tev
+    import synapta_tpu_torch.models.detector as tdet
+    import synapta_tpu_torch.serve as tserve
+
+    for name in ("unshrink_boxes", "_snap_box_to_ink", "refine_line_boxes"):
+        out.append((f"detector.{name}", getattr(tdet, name),
+                    getattr(jdet, name), []))
+    out.append(("detector.knobs", _knobs(tdet), _knobs(jdet), []))
+    for name in ("_luma", "_views", "detect_lines"):
+        out.append((f"detector.DBLineDetector.{name}",
+                    tdet.DBLineDetector.__dict__[name],
+                    jdet.DBLineDetector.__dict__[name],
+                    _DETECT_LINES_SUBS if name == "detect_lines" else []))
+    out.append(("ocr.db_detector", tp.TorchOCR.__dict__["db_detector"],
+                jp.TPUOCR.__dict__["db_detector"], [
+                    ("det_size=self.cfg.crop_size)",
+                     "det_size=self.cfg.crop_size, device=self.device)")]))
+    out.append(("pipeline._ocr_dispatch",
+                tpipe.VisualSegmentationPipeline.__dict__["_ocr_dispatch"],
+                jpipe.VisualSegmentationPipeline.__dict__["_ocr_dispatch"], []))
+    out.append(("eval.cer", tev.cer, jtrain.cer, []))
+    for name in ("norm_text", "_prep_standalone", "_box_iou", "_box_containment",
+                 "_best_window_cer", "evaluate_golden_crop", "evaluate_book",
+                 "evaluate_scanned"):
+        out.append((f"eval.{name}", getattr(tev, name), getattr(jev, name),
+                    _EVAL_SUBS.get(name, [])))
+    out.append(("serve", tserve, jserve, _SERVE_SUBS))
     return out
+
+
+def _knobs(module):
+    """The refine knobs' block of the detector module's source."""
+    m = re.search(r"^# refine knobs.*?^_FLOOR_FRAC = [^\n]*\n",
+                  inspect.getsource(module), re.M | re.S)
+    return m.group(0)
+
+
+# DBLineDetector.detect_lines: the device dispatch and the copy back
+_DETECT_LINES_SUBS = [
+    ("_boxes_device(self.params, chunk, self.prob_thresh))",
+     "boxes_device(self.model, chunk, self.prob_thresh))"),
+    ("[np.asarray(p) for p in pending]", "[p.cpu().numpy() for p in pending]"),
+]
+
+
+# the evaluations name their device; cer is the module's own copy
+_EVAL_SUBS = {
+    "evaluate_golden_crop": [
+        ('def evaluate_golden_crop(route: str = "production") -> Dict:\n',
+         'def evaluate_golden_crop(route: str = "production",\n'
+         '                         device="cuda") -> Dict:\n'),
+        ("    \"\"\"Feed the reference's golden crop PNG through TPUOCR + the",
+         "    \"\"\"Feed the reference's golden crop PNG through TorchOCR + the"),
+        ("    from synapta_tpu.models.train import cer\n", ""),
+        ("    from synapta_tpu.ocr.processor import TPUOCR\n",
+         "    from synapta_tpu.ocr.processor import TorchOCR\n"),
+        ("    from synapta_tpu.ops.features import device_analyze\n",
+         "    from synapta_tpu.ops.features import (\n"
+         "        device_analyze_dispatch,\n"
+         "        unpack_analysis,\n"
+         "    )\n"),
+        ("    feats, boxes = device_analyze(\n"
+         "        batch, sizes=np.array([(oh, ow)], np.int32)\n"
+         "    )\n",
+         "    feats, boxes = unpack_analysis(device_analyze_dispatch(\n"
+         "        batch, sizes=np.array([(oh, ow)], np.int32), device=device\n"
+         "    ).cpu().numpy(), 1)\n"),
+        ("    ocr = TPUOCR(cfg.ocr)\n", "    ocr = TorchOCR(cfg.ocr, device=device)\n"),
+    ],
+    "evaluate_book": [
+        ("def evaluate_book(pages: int = 16, seed: int = 3, use_llm: bool = False) -> Dict:\n",
+         "def evaluate_book(pages: int = 16, seed: int = 3, use_llm: bool = False,\n"
+         "                  device=\"cuda\") -> Dict:\n"),
+        ("    from synapta_tpu.models.train import cer\n", ""),
+        ("        resume=False,\n    )\n",
+         "        resume=False,\n        device=device,\n    )\n"),
+    ],
+    "evaluate_scanned": [
+        ("def evaluate_scanned(pages: int = 2, seed: int = 1) -> Dict:\n",
+         "def evaluate_scanned(pages: int = 2, seed: int = 1,\n"
+         "                     device=\"cuda\") -> Dict:\n"),
+        ("    from synapta_tpu.models.train import cer\n", ""),
+        ("        resume=False,\n    )\n",
+         "        resume=False,\n        device=device,\n    )\n"),
+    ],
+}
+
+
+# the book queue names its device; usage lines name the port
+_SERVE_SUBS = [
+    ("    python -m synapta_tpu.serve --books a.pdf b.pdf --output-root out/\n"
+     "    python -m synapta_tpu.serve --books-dir shelf/ --output-root out/\n",
+     "    python -m synapta_tpu_torch.serve --books a.pdf b.pdf --output-root out/\n"
+     "    python -m synapta_tpu_torch.serve --books-dir shelf/ --output-root out/\n"
+     "\n"
+     "Every book's pipeline runs on ``--device`` (``BookQueue.device``; default\n"
+     "``cuda``, which fails without a GPU; ``cpu`` runs the kernels' plain\n"
+     "PyTorch twins).\n"),
+    ("    llm_client: object = None      # shared fake/real client (None = per-book)\n",
+     "    llm_client: object = None      # shared fake/real client (None = per-book)\n"
+     "    device: str = \"cuda\"           # torch device of every book's pipeline\n"),
+    ("        self._ocr = None           # shared TPUOCR across books\n",
+     "        self._ocr = None           # shared TorchOCR across books\n"),
+    ("                    ocr=self._ocr,\n                    resume=True,\n",
+     "                    ocr=self._ocr,\n                    resume=True,\n"
+     "                    device=self.device,\n"),
+    ("                help=\"pages per super-batch (default: config's tuned value)\")\n"
+     "    args = ap.parse_args(argv)\n",
+     "                help=\"pages per super-batch (default: config's tuned value)\")\n"
+     "    ap.add_argument(\"--device\", default=\"cuda\",\n"
+     "                    help=\"torch device: cuda (default) or cpu\")\n"
+     "    args = ap.parse_args(argv)\n"
+     "    if argv is None:\n"
+     "        # the native PDF engine needs libjpeg.so.62; re-exec with Pillow's\n"
+     "        # copy where the system has none\n"
+     "        from synapta_tpu.hostlibs import ensure_native_engine\n"
+     "\n"
+     "        ensure_native_engine([\"-m\", \"synapta_tpu_torch.serve\", *sys.argv[1:]])\n"),
+    ("        llm_client=DisabledClient() if args.no_llm else None,\n    )\n",
+     "        llm_client=DisabledClient() if args.no_llm else None,\n"
+     "        device=args.device,\n    )\n"),
+]
 
 
 def _port_text(src):
@@ -257,17 +387,26 @@ def _port_text(src):
                   src, flags=re.M)
 
 
-@pytest.mark.parametrize("idx", range(51))
+def _source(obj):
+    if isinstance(obj, str):  # a block of module-level lines
+        return obj
+    if isinstance(obj, staticmethod):
+        obj = obj.__func__
+    elif isinstance(obj, property):
+        obj = obj.fget
+    return inspect.getsource(obj)
+
+
+@pytest.mark.parametrize("idx", range(70))
 def test_verbatim_copy(idx):
     copies = _copies()
-    assert len(copies) == 51
+    assert len(copies) == 70
     name, port, orig, subs = copies[idx]
-    unwrap = lambda o: o.__func__ if isinstance(o, staticmethod) else o  # noqa: E731
-    want = inspect.getsource(unwrap(orig))
+    want = _source(orig)
     for a, b in subs:
         assert want.count(a) == 1, (name, a)
         want = want.replace(a, b)
-    assert inspect.getsource(unwrap(port)) == _port_text(want), name
+    assert _source(port) == _port_text(want), name
 
 
 def test_cuda_device_raises_without_cuda(monkeypatch, book):
@@ -285,26 +424,16 @@ def test_cuda_device_raises_without_cuda(monkeypatch, book):
         resolve_device("meta")
 
 
-def test_db_routes_raise(book):
+def test_db_route_binds_detector():
+    """line_detector="db" binds the DB detector eagerly on the OCR's device;
+    "auto" binds it at first use, from the same process-wide cache."""
+    from synapta_tpu_torch.models.detector import DBLineDetector
     from synapta_tpu_torch.ocr.processor import TorchOCR
 
-    with pytest.raises(NotImplementedError):
-        TorchOCR(OCRConfig(line_detector="db"), device="cpu")
-    ocr = TorchOCR(OCRConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ocr.db_detector
-
-
-def test_scanned_like_crop_raises(monkeypatch, book):
-    from synapta_tpu_torch.pipeline import VisualSegmentationPipeline
-
-    pdf, d = book
-    monkeypatch.setattr(VisualSegmentationPipeline, "_scanned_like",
-                        lambda self, region: True)
-    pipe = VisualSegmentationPipeline(
-        "scan", pdf, output_dir=str(d / "scan"),
-        config=PipelineConfig(use_vision_llm=False),
-        llm_client=DisabledClient(), resume=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.process()
-    pipe.close()
+    eager = TorchOCR(OCRConfig(line_detector="db"), device="cpu")
+    assert isinstance(eager._db_detector, DBLineDetector)
+    assert eager._db_detector.device.type == "cpu"
+    assert next(eager._db_detector.model.parameters()).device.type == "cpu"
+    lazy = TorchOCR(OCRConfig(), device="cpu")
+    assert lazy._db_detector is None
+    assert lazy.db_detector is eager._db_detector
