@@ -133,16 +133,11 @@ def rendered_crops(pdf: str, pages, n: int = 16):
 def box_match_share(want, got, iou_min: float = 0.9) -> float:
     """Share of line boxes (of the longer list, over all crops) that have a
     partner in the other list at IoU >= iou_min."""
-    def iou(a, b):
-        ix = max(0, min(a[2], b[2]) - max(a[0], b[0]))
-        iy = max(0, min(a[3], b[3]) - max(a[1], b[1]))
-        union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
-                 - ix * iy)
-        return ix * iy / union if union > 0 else 0.0
+    from synapta_tpu_torch.eval import _box_iou
 
     hits = total = 0
     for w, g in zip(want, got):
-        hits += sum(any(iou(a, b) >= iou_min for b in g) for a in w)
+        hits += sum(any(_box_iou(a, b) >= iou_min for b in g) for a in w)
         total += max(len(w), len(g))
     return hits / max(total, 1)
 
@@ -304,6 +299,7 @@ def main() -> int:
     if err_msg:
         return fail(err_msg)
     cc_err = max(cc_err, db_row["max_abs_err"])
+    cc_checked = [row["site"] for row in cc_rows] + [db_row["site"]]
     emit("cc_db_site", exact=True, **db_row,
          bound_share=db_row["bound_ms"] / db_row["ms"], **CARD)
 
@@ -593,8 +589,14 @@ def main() -> int:
             rows = sorted(((us, k, n) for k, (us, n) in by_name.items()),
                           reverse=True)
             busy_s = sum(r[0] for r in rows) / 1e6
+            # beside it, the sum of every key_averages() row's self device
+            # time over the same trace (operator rows count their kernels
+            # again)
+            rows_s = sum(getattr(e, "self_device_time_total", 0.0)
+                         for e in prof.key_averages()) / 1e6
             emit(f"profile_{label}", wall_s=wall, device_busy_s=busy_s,
                  device_busy_share=busy_s / wall,
+                 key_averages_self_device_s=rows_s,
                  top=[{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
                       for us, k, n in rows[:15]], **CARD)
 
@@ -614,7 +616,8 @@ def main() -> int:
          "replaces": "synapta_tpu/ops/pallas_cc.py:100",
          "launches": launches["cc"] + scan_launches["cc"], "max_abs_err": cc_err,
          "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound_ms,
-         "bound_by": cc_bound_by, "library_ms": None, "sites": 5,
+         "bound_by": cc_bound_by, "library_ms": None,
+         "sites": len(cc_checked), "site_names": cc_checked,
          "launches_by_path": {"book64": launches["cc"],
                               "scanned16": scan_launches["cc"]},
          "db_site": {"ms": db_row["ms"], "plain_ms": db_row["plain_ms"],

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import flax.linen as fnn
 
 from synapta_tpu.models import detector as jdet
+from synapta_tpu_torch.eval import _box_iou
 from synapta_tpu_torch.models import detector as tdet
 
 LOGIT_03 = float(np.log(0.3 / 0.7))  # the probability threshold as a logit
@@ -201,18 +202,9 @@ def test_post_stage_equals_jax(tree, scanned, monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
-def _iou(a, b):
-    ix = max(0, min(a[2], b[2]) - max(a[0], b[0]))
-    iy = max(0, min(a[3], b[3]) - max(a[1], b[1]))
-    inter = ix * iy
-    union = ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1])
-             - inter)
-    return inter / union if union > 0 else 0.0
-
-
 def _matched_share(want, got):
     """Share of boxes (of the larger list) with a partner at IoU >= 0.9."""
-    hits = sum(any(_iou(w, g) >= 0.9 for g in got) for w in want)
+    hits = sum(any(_box_iou(w, g) >= 0.9 for g in got) for w in want)
     return hits / max(len(want), len(got), 1)
 
 
