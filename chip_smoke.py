@@ -20,7 +20,17 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   CPU (segments must match) and a 16-page one through eval.evaluate_scanned
   (0 errors, CER <= 0.025);
 - serve.BookQueue(device="cuda") over a test book and a scanned book: both
-  done with 0 errors, and a second run skips both.
+  done with 0 errors, and a second run skips both;
+- training, which launches no kernel of the port's own (cuDNN, cuBLAS and
+  torch's CTC loss): three optimiser steps of each trainer in float32 on
+  the GPU against the CPU from the same parameters and batches, and the
+  first loss in bf16 on the GPU against float32 on the CPU
+  (``train_step_parity``); ``models.train.train(device="cuda")`` from
+  scratch at full width, 150 steps of 64 lines (the loss falls to the bar,
+  the checkpoint reads back to the trained model's logits); the shipped
+  recognizer's CER on 256 synthetic lines (< 0.05); and
+  ``models.detector.train_detector(device="cuda")`` from scratch, 60 steps
+  of 8 pages at 512², with steps/s, samples/s and the host's data share.
 
 Kernel launch counters are set to 0 just before each of the 64-page and the
 16-page scanned runs and read just after. Every phase prints one JSON line;
@@ -28,9 +38,10 @@ any failure exits nonzero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
-``--profile`` runs the 64-page book, the 16-page scanned book and one DB
-chunk (model, post stage) once more under torch.profiler (device-busy share,
-device time by kernel; traces in chiprun_out/). There is no CPU fallback:
+``--profile`` runs the 64-page book, the 16-page scanned book, one DB chunk
+(model, post stage) and one step of each trainer (its batch drawn on the
+host included) once more under torch.profiler (device-busy share, device
+time by kernel; traces in chiprun_out/). There is no CPU fallback:
 without CUDA the script exits 1 and prints no result. Synthetic inputs are
 made from fixed seeds.
 """
@@ -58,6 +69,24 @@ F32_OPS_PER_S = 67e12
 DB_PROB_AGREE_MIN = 0.999
 DB_BOX_MATCH_MIN = 0.95
 SCANNED_CER_MAX = 0.025  # the JAX package's bar, tests/test_detector.py
+# Training. Three steps of each trainer in float32 on the card against the
+# CPU, from the same parameters and batches (warmup 2 of 10, peak lr 1e-3).
+# The CPU rehearsal (float32 against float64 on the CPU) gave loss errors up
+# to 1.6e-6 relative, parameter updates 3.8e-3 (recognizer) and 4.5e-4
+# (detector) apart in relative norm, at most 8.8e-4 on one parameter, and a
+# bf16 first loss 2.6e-4 / 4.1e-4 from float32. The bars leave room for the
+# card's other orders of summation and its CTC backward's atomics; one
+# parameter may differ by at most 2 × (lr₂ + lr₃), where Adam's first steps
+# take the other sign of a gradient at rounding level.
+TRAIN_PARITY = {"loss_rel": 1e-4, "delta_rel_norm": 0.05,
+                "param_max_abs": 3e-3, "bf16_loss_rel": 5e-3}
+REC_STEPS = 150  # batch 64; more than the schedule's 100 warmup steps
+DET_STEPS = 60   # batch 8 at 512²; more than the schedule's 50 warmup steps
+# From scratch, the mean loss of the last tenth of the steps over the first
+# tenth's. The CPU rehearsal of the same runs (bf16, seed 42) gave 0.199
+# (recognizer, 372 -> 74) and 0.228 (detector, 5.61 -> 1.28).
+REC_LOSS_DROP_MAX = 0.5
+DET_LOSS_DROP_MAX = 0.5
 
 
 def bound(nbytes: float, ops: float):
@@ -167,11 +196,11 @@ def main() -> int:
     except (OSError, subprocess.SubprocessError):
         smi = []
     smi_line = smi[0] if smi else "unknown, unknown"
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     CARD.update(card=smi_line)
-    emit("env", torch=torch.__version__, cuda=torch.version.cuda, device=name,
-         capability=list(cap), count=torch.cuda.device_count(),
+    emit("env", torch=torch.__version__, cuda=torch.version.cuda,
+         device=device_name, capability=list(cap), count=torch.cuda.device_count(),
          python=sys.version.split()[0], **CARD)
     if cap != (9, 0):
         return fail(f"needs compute capability 9.0 (Hopper), got {cap}")
@@ -562,10 +591,160 @@ def main() -> int:
             or any(r["status"] != "done" for r in second.values()) or not skipped):
         return fail("serve: a book not done, with errors, or re-run")
 
+    # -------------------------------------------------------- 9. training
+    # no kernel of its own: convs and matmuls through cuDNN/cuBLAS, the CTC
+    # loss through torch's, as the JAX package leaves them to XLA and optax
+    from synapta_tpu_torch.hostlibs import ensure_synthdata_fonts
+    from synapta_tpu_torch.models import optim
+    from synapta_tpu_torch.models import recognizer as R
+    from synapta_tpu_torch.models import train as T
+    from synapta_tpu_torch.models.synthdata import make_batch
+
+    ensure_synthdata_fonts()
+    rec_tree = T.init_params(torch.Generator().manual_seed(SEED))
+    det_sd = D.init_params(D.Detector(dtype=torch.float32),
+                           torch.Generator().manual_seed(SEED)).state_dict()
+    rec_batches = [make_batch(np.random.default_rng(SEED + i), batch=64)
+                   for i in range(3)]
+    det_batches = [D.make_det_batch(np.random.default_rng(SEED + i), batch=8)
+                   for i in range(3)]
+
+    def rec_model(dtype):
+        m = T.create_model(dtype)
+        m.load_state_dict(R.params_from_flax(rec_tree))
+        return m
+
+    def det_model(dtype):
+        m = D.Detector(dtype=dtype)
+        m.load_state_dict(det_sd)
+        return m
+
+    def three_steps(model, make_step, batches, device, **betas):
+        """3 updates at warmup 2 of 10 (peak 1e-3: steps 2 and 3 move the
+        parameters) -> (losses, parameter deltas on the CPU in float64)."""
+        model = model.to(device)
+        p0 = {k: v.detach().double().cpu() for k, v in model.named_parameters()}
+        step = make_step(model, optim.adamw(
+            model.parameters(), optim.warmup_cosine_decay_schedule(
+                0.0, 1e-3, 2, 10), **betas))
+        losses = [float(step(*b)) for b in batches]
+        return losses, {k: v.detach().double().cpu() - p0[k]
+                        for k, v in model.named_parameters()}
+
+    def first_loss(model, objective, batch):
+        with torch.no_grad():
+            return float(objective(model, *batch))
+
+    parity = {}
+    for model_name, model_fn, make_step, batches, betas in (
+            ("recognizer", rec_model, T.make_train_step, rec_batches,
+             {"b2": 0.98}),
+            ("detector", det_model, D.make_det_train_step, det_batches, {})):
+        l_gpu, d_gpu = three_steps(model_fn(torch.float32), make_step, batches,
+                                   dev, **betas)
+        l_cpu, d_cpu = three_steps(model_fn(torch.float32), make_step, batches,
+                                   "cpu", **betas)
+        diff = {k: d_gpu[k] - d_cpu[k] for k in d_cpu}
+        n_el = sum(d.numel() for d in diff.values())
+        # the first step's loss in bf16 on the card against float32 on the CPU
+        if model_name == "recognizer":
+            x, y, n = rec_batches[0]
+            args = (torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(y),
+                    torch.from_numpy(n))
+            objective = T.ctc_objective
+        else:
+            x, *tgt = det_batches[0]
+            args = (torch.from_numpy(x).permute(0, 3, 1, 2),
+                    *(torch.from_numpy(a) for a in tgt))
+            objective = D.db_loss
+        bf16 = first_loss(model_fn(torch.bfloat16).to(dev), objective,
+                          [a.to(dev) for a in args])
+        f32 = first_loss(model_fn(torch.float32), objective, args)
+        parity[model_name] = {
+            "losses_cuda": l_gpu, "losses_cpu": l_cpu,
+            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu)),
+            "delta_rel_norm_err": math.sqrt(sum(float((d ** 2).sum())
+                                                for d in diff.values()))
+            / math.sqrt(sum(float((d ** 2).sum()) for d in d_cpu.values())),
+            "param_max_abs_err": max(float(d.abs().max()) for d in diff.values()),
+            "param_share_within_1e-6": sum(int((d.abs() <= 1e-6).sum())
+                                           for d in diff.values()) / n_el,
+            "bf16_cuda_loss": bf16, "f32_cpu_loss": f32,
+            "bf16_loss_rel_err": abs(bf16 - f32) / abs(f32)}
+    emit("train_step_parity", **parity, bars=TRAIN_PARITY, **CARD)
+    for model_name, p in parity.items():
+        if (p["loss_rel_err"] > TRAIN_PARITY["loss_rel"]
+                or p["delta_rel_norm_err"] > TRAIN_PARITY["delta_rel_norm"]
+                or p["param_max_abs_err"] > TRAIN_PARITY["param_max_abs"]
+                or p["bf16_loss_rel_err"] > TRAIN_PARITY["bf16_loss_rel"]):
+            return fail(f"{model_name} training steps: cuda and cpu differ: {p}")
+
+    def loss_drop(losses):
+        """Mean loss of the last tenth of the steps over the first tenth's."""
+        n = max(len(losses) // 10, 1)
+        return (sum(losses[-n:]) / n) / (sum(losses[:n]) / n)
+
+    def run_row(run, samples):
+        return {"steps": run["steps"], "wall_s": run["wall_s"],
+                "steps_per_s": run["steps"] / run["wall_s"],
+                "samples_per_s": run["steps"] * samples / run["wall_s"],
+                "host_data_s": run["data_s"],
+                "host_data_share": run["data_s"] / run["wall_s"],
+                "host_step_s": run["host_step_s"],
+                "device_step_s": run["device_step_s"],
+                "first_losses": run["losses"][:3], "last_losses": run["losses"][-3:],
+                "loss_drop": loss_drop(run["losses"])}
+
+    rec_out = os.path.join(tmp, "train", "recognizer.msgpack")
+    rec_run = T.train(steps=REC_STEPS, batch=64, seed=SEED, out=rec_out,
+                      log_every=50, device="cuda")
+    # the checkpoint, read back, gives the trained model's own logits
+    trained = rec_run["model"]
+    reread = T.create_model(trained.dtype)
+    reread.load_state_dict(R.params_from_flax(T.load_params(rec_out)))
+    reread.to(dev).eval()
+    probe = torch.from_numpy(rec_batches[0][0][:16]).to(dev).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        ckpt_err = float((reread(probe) - trained(probe)).abs().max())
+    emit("train_recognizer", **run_row(rec_run, 64), lines_per_step=64,
+         cer=rec_run["cer"], checkpoint_logit_max_abs_err=ckpt_err,
+         loss_drop_max=REC_LOSS_DROP_MAX, **CARD)
+    if loss_drop(rec_run["losses"]) > REC_LOSS_DROP_MAX or ckpt_err != 0.0:
+        return fail(f"recognizer training: loss drop "
+                    f"{loss_drop(rec_run['losses']):.3f} (bar "
+                    f"{REC_LOSS_DROP_MAX}), checkpoint logits off by {ckpt_err}")
+
+    shipped = R.recognizer_from_flax(load_params(), dtype=torch.bfloat16,
+                                     device="cuda")
+    t = time.perf_counter()
+    shipped_cer = T.evaluate(shipped, np.random.default_rng(SEED + 1))
+    emit("train_eval_shipped", lines=256, cer=shipped_cer, cer_max=0.05,
+         wall_s=time.perf_counter() - t, **CARD)
+    if not shipped_cer < 0.05:
+        return fail(f"shipped recognizer CER {shipped_cer:.4f} >= 0.05")
+
+    det_out = os.path.join(tmp, "train", "detector.msgpack")
+    det_run = D.train_detector(steps=DET_STEPS, batch=8, size=512, seed=SEED,
+                               out=det_out, log_every=30, device="cuda")
+    reread = D.Detector(dtype=det_run["model"].dtype)
+    reread.load_state_dict(D.params_from_flax(D.load_det_params(det_out)))
+    reread.to(dev).eval()
+    probe = torch.from_numpy(det_batches[0][0][:2]).to(dev).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        ckpt_err = float((reread(probe) - det_run["model"](probe)).abs().max())
+    emit("train_detector", **run_row(det_run, 8), pages_per_step=8,
+         checkpoint_logit_max_abs_err=ckpt_err, loss_drop_max=DET_LOSS_DROP_MAX,
+         **CARD)
+    if loss_drop(det_run["losses"]) > DET_LOSS_DROP_MAX or ckpt_err != 0.0:
+        return fail(f"detector training: loss drop "
+                    f"{loss_drop(det_run['losses']):.3f} (bar "
+                    f"{DET_LOSS_DROP_MAX}), checkpoint logits off by {ckpt_err}")
+
     if "--profile" in sys.argv[1:]:
-        # optional: the 64-page book, the 16-page scanned book and one DB
-        # chunk (model, then post stage) once more under torch.profiler, for
-        # the device-busy share and device time by kernel (not the timed runs)
+        # optional: the 64-page book, the 16-page scanned book, one DB chunk
+        # (model, then post stage) and one step of each trainer once more
+        # under torch.profiler, for the device-busy share and device time by
+        # kernel (not the timed runs)
         from torch.profiler import ProfilerActivity, profile
 
         def profiled(label, fn):
@@ -607,6 +786,23 @@ def main() -> int:
         profiled("db_post", lambda: D.mask_boxes(D.closed_mask(
             db_logits_gpu, det.prob_thresh)))
 
+        # one training step of each trainer as it runs in train(): the
+        # host's batch, then the enqueued step, then the wait for its loss
+        def train_step_of(model, make_step, gen, **betas):
+            step = make_step(model, optim.adamw(model.parameters(), 1e-4,
+                                                **betas))
+            rng = np.random.default_rng(SEED + 7)
+            for _ in range(2):  # warm up cuDNN's algorithm choice
+                step(*gen(rng))
+            return lambda: float(step(*gen(rng)))
+
+        profiled("train_recognizer_step", train_step_of(
+            rec_run["model"].train(), T.make_train_step,
+            lambda r: make_batch(r, batch=64), b2=0.98))
+        profiled("train_detector_step", train_step_of(
+            det_run["model"].train(), D.make_det_train_step,
+            lambda r: D.make_det_batch(r, batch=8)))
+
     # launches: the 64-page book's and the 16-page scanned book's runs; ms,
     # plain_ms and bound_ms per analyze chunk (the CC row's four analyze
     # sites; the DB site per DB chunk under "db_site")
@@ -635,7 +831,7 @@ def main() -> int:
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        "platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
 

@@ -7,6 +7,11 @@ libjpeg-turbo that Pillow's wheel bundles provides the same ABI. The dynamic
 loader reads ``LD_LIBRARY_PATH`` only at process start, so the fix is a
 re-exec: a directory in the checkout gets a ``libjpeg.so.62`` symlink to
 Pillow's copy, and the process restarts with that directory on the path.
+
+Where the system lacks the DejaVu faces or fontTools, the synthetic books
+(``ensure_fixture_fonts``) and the training-line generator
+(``ensure_synthdata_fonts``) use the faces shipped in
+``synapta_tpu_torch/fonts/`` and read glyph tables from their files.
 """
 from __future__ import annotations
 
@@ -83,6 +88,37 @@ def ensure_fixture_fonts() -> None:
     pw.DEJAVU_BOLD = str(fonts / "DejaVuSans-Bold.ttf")
     # text_width binds DEJAVU as its default argument at definition time
     pw.text_width.__defaults__ = (pw.DEJAVU,)
+
+
+def ensure_synthdata_fonts() -> None:
+    """The training-line generator (``synapta_tpu_torch.models.synthdata``)
+    binds its faces when it is imported: DejaVu Sans and Sans Bold from the
+    book writer, DejaVu Serif and Sans Mono by system path, matplotlib's
+    STIX faces where matplotlib is installed, and it asks fontTools which
+    characters each face covers. Where a DejaVu file is missing, point the
+    generator at the copy shipped in ``synapta_tpu_torch/fonts/``; where
+    fontTools is missing, read each face's coverage from its cmap. Without
+    matplotlib the STIX faces stay out, so the same seed draws other lines
+    than on a machine that has them."""
+    import synapta_tpu_torch.io.pdf_writer as pw
+    import synapta_tpu_torch.models.synthdata as sd
+
+    ensure_fixture_fonts()
+    fonts = Path(__file__).resolve().parent / "fonts"
+    sd.DEJAVU, sd.DEJAVU_BOLD = pw.DEJAVU, pw.DEJAVU_BOLD
+    if not os.path.exists(sd.DEJAVU_SERIF):
+        sd.DEJAVU_SERIF = str(fonts / "DejaVuSerif.ttf")
+    if not os.path.exists(sd.DEJAVU_MONO):
+        sd.DEJAVU_MONO = str(fonts / "DejaVuSansMono.ttf")
+    sd.FONTS = sd._candidate_fonts()
+    try:
+        import fontTools.ttLib  # noqa: F401
+    except ImportError:
+        for path in sd.FONTS:
+            if path not in sd._COVERAGE:
+                cmap = _GlyphTable(path)._cmap
+                sd._COVERAGE[path] = {c for c in sd.charset.CHARS
+                                      if ord(c) in cmap}
 
 
 class _GlyphTable:

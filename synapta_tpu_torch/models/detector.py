@@ -1,4 +1,4 @@
-"""DB-style text-line detector, inference half — counterpart of
+"""DB-style text-line detector and its trainer — counterpart of
 synapta_tpu/models/detector.py.
 
 A tiny FPN over a 512² page raster predicts a shrunk-text probability map
@@ -16,18 +16,31 @@ Parity with the flax module (each pinned by a test):
   - ``jax.image.resize(.., "bilinear")`` upsampling equals
     ``F.interpolate(bilinear, align_corners=False)``, borders included;
   - the trunk runs in ``dtype`` (bfloat16 in production), the head conv in
-    float32 with a bias.
+    float32 with a bias. Parameters are stored in ``param_dtype`` (float32
+    for training, as flax keeps them; ``detector_from_flax`` stores the
+    convs in the compute dtype for inference) and each conv kernel is cast
+    to the compute dtype where flax casts it.
 
 The convs go to cuDNN, as the JAX package leaves them to XLA. The host
 code (``unshrink_boxes``, the refine knobs, ``_snap_box_to_ink``,
 ``refine_line_boxes`` and DBLineDetector's ``_luma``, ``_views`` and
 ``detect_lines``) is a verbatim copy of the original; a test pins each copy.
-Training (targets, loss, optimiser) is not ported yet.
+
+Training (``train_detector``, ``python -m synapta_tpu_torch.models.detector
+--device cuda``): the synthetic pages and their targets (``shrink_box``,
+``render_det_page``, ``make_det_batch``) are verbatim copies; ``db_loss``
+is the DB loss with 3:1 hard-negative mining, on a full stable sort where
+the JAX package takes ``lax.top_k`` of every pixel; the optimiser is
+``optim.adamw`` over a warmup-cosine schedule. Checkpoints are flax msgpack
+files that the JAX package reads, written under
+``synapta_tpu_torch/_build/weights/`` unless ``--out`` names another path.
 """
 from __future__ import annotations
 
+import argparse
 import os
-from typing import Dict, List
+import sys
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +48,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from synapta_tpu_torch.device import resolve_device
-from synapta_tpu_torch.models.recognizer import _same_pad
+from synapta_tpu_torch.models.recognizer import _same_pad, flax_init_
 
 # The port shares the JAX package's weight files: they are read by file path
 # from the repo root (<repo>/synapta_tpu/models/weights/), never imported.
@@ -43,15 +56,20 @@ DET_WEIGHTS_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "synapta_tpu", "models", "weights", "detector.msgpack",
 )
+# Where the port's trainer writes (git-ignored); never the shared files above.
+DET_OUT_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "_build", "weights", "detector.msgpack",
+)
 
 
 def group_norm(x: torch.Tensor, groups: int, scale: torch.Tensor,
                bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """flax ``nn.GroupNorm`` on an NCHW tensor: float32 statistics with the
-    fast variance max(0, E[x²] - E[x]²), float32 affine, result in x's
-    dtype."""
+    """flax ``nn.GroupNorm`` on an NCHW tensor: statistics in at least
+    float32 with the fast variance max(0, E[x²] - E[x]²), the affine in the
+    same dtype, result in x's dtype."""
     B, C, H, W = x.shape
-    xf = x.to(torch.float32).reshape(B, groups, -1)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(B, groups, -1)
     mean = xf.mean(dim=-1, keepdim=True)
     var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
     y = (xf - mean).reshape(B, C, H, W)
@@ -61,12 +79,15 @@ def group_norm(x: torch.Tensor, groups: int, scale: torch.Tensor,
 
 
 def same_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A padding=0 conv with flax 'SAME' padding applied explicitly."""
+    """A padding=0 conv with flax 'SAME' padding applied explicitly, its
+    parameters cast to x's dtype as flax casts them to the compute dtype."""
     kh, kw = conv.kernel_size
     sh, sw = conv.stride
     ph = _same_pad(x.shape[2], sh, kh)
     pw = _same_pad(x.shape[3], sw, kw)
-    return conv(F.pad(x, (*pw, *ph)))
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(F.pad(x, (*pw, *ph)), conv.weight.to(x.dtype), bias,
+                    conv.stride)
 
 
 def upsample_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -81,10 +102,10 @@ class ConvBlock(nn.Module):
     """3x3 conv (no bias) + GroupNorm + relu, as flax's ConvBlock."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 dtype: torch.dtype = torch.bfloat16):
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, 3, stride=stride, bias=False,
-                              dtype=dtype)
+                              dtype=param_dtype)
         self.groups = min(8, features)
         self.gn_scale = nn.Parameter(torch.ones(features))
         self.gn_bias = nn.Parameter(torch.zeros(features))
@@ -107,12 +128,14 @@ class Detector(nn.Module):
     # them in call order, and `lat(c3) + up(lat(c4))` evaluates left first)
     LATERALS = ((64, 64), (96, 64), (32, 32), (16, 16))
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
-        self.blocks = nn.ModuleList(ConvBlock(i, o, s, dtype)
+        self.blocks = nn.ModuleList(ConvBlock(i, o, s, param_dtype)
                                     for i, o, s in self.BLOCKS)
-        self.lat = nn.ModuleList(nn.Conv2d(i, o, 1, bias=False, dtype=dtype)
+        self.lat = nn.ModuleList(nn.Conv2d(i, o, 1, bias=False,
+                                           dtype=param_dtype)
                                  for i, o in self.LATERALS)
         self.head = nn.Conv2d(16, 2, 3, dtype=torch.float32)
 
@@ -124,9 +147,9 @@ class Detector(nn.Module):
         c3 = b[5](b[4](c2))  # 1/8
         c4 = b[7](b[6](c3))  # 1/16
         # top-down merge (FPN): lateral 1x1 + upsample-add
-        p3 = lat[0](c3) + upsample_like(lat[1](c4), c3)
-        p2 = lat[2](c2) + upsample_like(b[8](p3), c2)
-        p1 = lat[3](c1) + upsample_like(b[9](p2), c1)
+        p3 = same_conv(lat[0], c3) + upsample_like(same_conv(lat[1], c4), c3)
+        p2 = same_conv(lat[2], c2) + upsample_like(b[8](p3), c2)
+        p1 = same_conv(lat[3], c1) + upsample_like(b[9](p2), c1)
         h = b[10](p1)  # 1/2 resolution head
         return same_conv(self.head, h.to(torch.float32))
 
@@ -153,12 +176,54 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def params_to_flax(sd) -> Dict:
+    """The exact inverse of ``params_from_flax``: a Detector state_dict ->
+    the flax tree (float32 numpy leaves), keys in flax's creation order."""
+    def a(key):
+        return np.ascontiguousarray(
+            sd[key].detach().to("cpu", torch.float32).numpy())
+
+    def conv(key):
+        return np.ascontiguousarray(a(key).transpose(2, 3, 1, 0))
+
+    def block(i):
+        return {"Conv_0": {"kernel": conv(f"blocks.{i}.conv.weight")},
+                "GroupNorm_0": {"scale": a(f"blocks.{i}.gn_scale"),
+                                "bias": a(f"blocks.{i}.gn_bias")}}
+
+    # flax creates the backbone, then c3's and c4's laterals, the p3 block,
+    # c2's lateral, the p2 block, c1's lateral, the head block, the head
+    order = [f"ConvBlock_{i}" for i in range(8)] + [
+        "Conv_0", "Conv_1", "Conv_2", "ConvBlock_8", "Conv_3", "ConvBlock_9",
+        "ConvBlock_10", "Conv_4"]
+    tree: Dict = {}
+    for name in order:
+        i = int(name.rsplit("_", 1)[1])
+        if name.startswith("ConvBlock_"):
+            tree[name] = block(i)
+        elif i < len(Detector.LATERALS):
+            tree[name] = {"kernel": conv(f"lat.{i}.weight")}
+        else:
+            tree[name] = {"kernel": conv("head.weight"), "bias": a("head.bias")}
+    return tree
+
+
+def init_params(model: Detector, generator: torch.Generator) -> Detector:
+    """flax's initialisers on ``model`` in place: lecun_normal conv kernels,
+    a zero head bias, GroupNorm ones and zeros."""
+    flax_init_(model, generator)
+    for blk in model.blocks:
+        nn.init.ones_(blk.gn_scale)
+        nn.init.zeros_(blk.gn_bias)
+    return model
+
+
 def detector_from_flax(tree, dtype: torch.dtype = torch.bfloat16,
-                       device="cpu") -> Detector:
+                       device="cuda") -> Detector:
     """Build a Detector from the flax tree, load it, and put it in eval mode
-    on ``device``. Conv weights take ``dtype``; GroupNorm's affine and the
-    head stay float32, as flax keeps them."""
-    model = Detector(dtype=dtype)
+    on ``device``. Conv weights are stored in ``dtype`` (inference);
+    GroupNorm's affine and the head stay float32, as flax keeps them."""
+    model = Detector(dtype=dtype, param_dtype=dtype)
     model.load_state_dict(params_from_flax(tree))
     return model.to(device).eval()
 
@@ -169,6 +234,387 @@ def load_det_params(path: str = DET_WEIGHTS_PATH):
 
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+# ---------------------------------------------------------------- targets
+
+
+def shrink_box(x0, y0, x1, y1, ratio: float = 0.3) -> Tuple[int, int, int, int]:
+    """Shrink an axis-aligned line box by d = ratio * min(w, h).
+
+    DB's polygon offset d = A(1-r^2)/L nearly collapses thin text lines
+    (w >> h gives d ~ 0.42h, leaving 16% of the height) and has no
+    stable inverse there. Text lines in this corpus are axis-aligned
+    rects, so a min-side-proportional offset is used instead: it keeps
+    40% of the line height (separating adjacent lines at any leading
+    >= 1.1em) and inverts exactly — unshrink with r' = r/(1-2r)."""
+    w, h = max(x1 - x0, 1.0), max(y1 - y0, 1.0)
+    d = ratio * min(w, h)
+    return (
+        int(round(x0 + d)), int(round(y0 + d)),
+        int(round(x1 - d)), int(round(y1 - d)),
+    )
+
+
+
+def render_det_page(
+    rng: np.random.Generator, size: int = 512,
+    sheet_frac: float = 0.25, dense_frac: float = 0.4,
+) -> Tuple[np.ndarray, List[List[float]]]:
+    """One synthetic page raster + its text-line pixel boxes.
+
+    Pages mix body text, tiny tick labels, and the graphic distractors the
+    detector must NOT fire on (rules, bars, circles, polylines) — rendered
+    through the native engine so the glyph rasterization matches inference.
+    """
+    from synapta_tpu_torch.io.ingest import Document
+    from synapta_tpu_torch.io.pdf_writer import SyntheticBook
+    from synapta_tpu_torch.models.synthdata import fit_text, random_text
+
+    pw = ph = 360.0
+    book = SyntheticBook(width=pw, height=ph)
+    c = book.new_page()
+    boxes_pdf: List[Tuple[float, float, float, float]] = []
+    # spreadsheet/screenshot mode (25%): full-page cell grid, grey fills,
+    # tiny number-heavy cell text — the golden-crop domain where the r4
+    # detector fragmented words and missed rows (eval --golden r5 first
+    # measurement: containment recall 0.52)
+    sheet = rng.random() < sheet_frac
+    if sheet:
+        from synapta_tpu_torch.models.synthdata import _screenshot_text
+
+        col_w = float(rng.uniform(34, 72))
+        row_h = float(rng.uniform(10, 16))
+        g = float(rng.uniform(0.55, 0.82))
+        x_off = float(rng.uniform(0.0, col_w))
+        y_off = float(rng.uniform(0.0, row_h))
+        gx = x_off
+        while gx < pw:
+            c.line(gx, 0, gx, ph, width=0.5, color=(g, g, g))
+            gx += col_w
+        gy = y_off
+        while gy < ph:
+            c.line(0, gy, pw, gy, width=0.5, color=(g, g, g))
+            gy += row_h
+        for _ in range(int(rng.integers(0, 5))):  # grey panels / fills
+            fx0 = rng.uniform(0, pw - 110)
+            fy0 = rng.uniform(0, ph - 60)
+            f = float(rng.uniform(0.78, 0.94))
+            c.rect(fx0, fy0, fx0 + rng.uniform(30, 110),
+                   fy0 + rng.uniform(10, 60), fill=(f, f, f), stroke=None)
+        n_rows = max(int(ph / row_h), 1)
+        n_cols = max(int(pw / col_w), 1)
+        used: set = set()
+        for _ in range(int(rng.integers(28, 70))):
+            rr = int(rng.integers(0, n_rows))
+            kk = int(rng.integers(0, n_cols))
+            if (rr, kk) in used:
+                continue
+            sz = row_h * float(rng.uniform(0.5, 0.72))
+            x = x_off + kk * col_w + float(rng.uniform(1, 5))
+            y = y_off + rr * row_h + float(rng.uniform(0.5, 2.5))
+            bb = c.text(x, y, _screenshot_text(rng), size=sz, record=False)
+            if bb is None or bb[2] >= pw or bb[3] >= ph:
+                continue
+            # skip cell texts whose boxes collide (a wide string spilling
+            # into the neighbor cell would create overlapping truth)
+            if any(
+                not (bb[2] <= o[0] or o[2] <= bb[0]
+                     or bb[3] <= o[1] or o[3] <= bb[1])
+                for o in boxes_pdf
+            ):
+                continue
+            used.add((rr, kk))
+            boxes_pdf.append(bb)
+        for _ in range(int(rng.integers(0, 3))):  # title-size lines
+            sz = float(rng.uniform(9, 14))
+            bb = c.text(
+                rng.uniform(10, pw * 0.4), rng.uniform(4, ph * 0.3),
+                fit_text(random_text(rng), 36), size=sz, record=False,
+            )
+            if bb is not None and bb[2] < pw and bb[3] < ph and not any(
+                not (bb[2] <= o[0] or o[2] <= bb[0]
+                     or bb[3] <= o[1] or o[3] <= bb[1])
+                for o in boxes_pdf
+            ):
+                boxes_pdf.append(bb)
+    # graphic distractors first (text draws over them like real charts)
+    for _ in range(int(rng.integers(0, 4)) if not sheet else 0):
+        kind = rng.integers(0, 4)
+        x0, y0 = rng.uniform(10, pw - 80), rng.uniform(10, ph - 80)
+        w, h = rng.uniform(20, 120), rng.uniform(20, 100)
+        if kind == 0:
+            c.rect(x0, y0, x0 + w, y0 + h,
+                   fill=None if rng.random() < 0.5 else
+                   tuple(rng.uniform(0.2, 0.9, 3)))
+        elif kind == 1:
+            c.line(x0, y0, x0 + w, y0 + (0 if rng.random() < 0.5 else h),
+                   width=float(rng.uniform(0.5, 2.0)))
+        elif kind == 2:
+            c.circle(x0 + w / 2, y0 + h / 2, min(w, h) / 2,
+                     fill=None if rng.random() < 0.5 else
+                     tuple(rng.uniform(0.2, 0.9, 3)))
+        else:
+            pts = [(x0 + w * t / 6.0,
+                    y0 + h * rng.random()) for t in range(7)]
+            c.polyline(pts, width=float(rng.uniform(0.8, 1.6)))
+    # dense-paragraph mode (40%): full-width lines at tight leading — the
+    # scanned-textbook distribution where round-3's sparse training pages
+    # left the probability map weak (measured ~0.1-0.3 on true lines of
+    # the make_scanned_book fixture -> fragmented word boxes, missed rows)
+    dense = (not sheet) and rng.random() < dense_frac
+    if sheet:
+        n_lines = 0
+    else:
+        n_lines = int(rng.integers(24, 40)) if dense else int(rng.integers(6, 22))
+    y = rng.uniform(8, 24)
+    for _ in range(n_lines):
+        if y > ph - 16:
+            break
+        tiny = (not dense) and rng.random() < 0.25
+        if dense:
+            sz = float(rng.uniform(6, 10))
+            # long full-width prose lines (2-3 generator draws joined)
+            text = fit_text(
+                " ".join(random_text(rng) for _ in range(3)), 72
+            )
+            x = rng.uniform(6, 20)
+        else:
+            sz = float(rng.uniform(5, 8)) if tiny else float(rng.uniform(8, 16))
+            text = fit_text(random_text(rng), 40 if not tiny else 8)
+            x = rng.uniform(6, pw * 0.5)
+        bb = c.text(x, y, text, size=sz, bold=bool(rng.random() < 0.2),
+                    record=False)
+        if bb is not None:
+            boxes_pdf.append(bb)
+        y += sz * (rng.uniform(1.15, 1.5) if dense else rng.uniform(1.3, 2.6))
+    doc = Document(data=book.tobytes())
+    scale = size / pw
+    if sheet and rng.random() < 0.5:
+        # the golden crop's canvas is a ~0.74x box-downscale of an
+        # already-antialiased screenshot: render high then box-downscale
+        # so the detector sees that double-softened glyph profile too
+        from synapta_tpu_torch.io.ingest import box_downscale
+
+        f = float(rng.uniform(1.15, 1.5))
+        hi = doc.render(0, dpi=72.0 * scale * f)
+        page = box_downscale(
+            hi, int(round(hi.shape[0] / f)), int(round(hi.shape[1] / f))
+        )
+    else:
+        page = doc.render(0, dpi=72.0 * scale)
+    doc.close()
+    gray = (
+        0.299 * page[..., 0] + 0.587 * page[..., 1] + 0.114 * page[..., 2]
+    ).astype(np.float32) / 255.0
+    canvas = np.ones((size, size), np.float32)
+    canvas[: min(size, gray.shape[0]), : min(size, gray.shape[1])] = gray[
+        :size, :size
+    ]
+    # scanned-style degradation (50%; always for dense pages): grey paper,
+    # noise, skew, JPEG ringing — the domain where this detector earns its
+    # keep over the heuristic. Matches make_scanned_book's pipeline
+    # (grey bg 235, sigma-5 noise, 0.004 row-shift skew, JPEG embedding).
+    skew_shift = None
+    if sheet:
+        # screenshots embed as JPEG but are never skewed or paper-grey
+        if rng.random() < 0.6:
+            from PIL import Image as _I
+            import io as _io
+
+            bio = _io.BytesIO()
+            _I.fromarray((canvas * 255).astype(np.uint8)).save(
+                bio, format="JPEG", quality=int(rng.integers(70, 95))
+            )
+            bio.seek(0)
+            canvas = np.asarray(_I.open(bio)).astype(np.float32) / 255.0
+        if rng.random() < 0.4:
+            canvas = np.clip(
+                canvas + rng.normal(0, rng.uniform(0.005, 0.02),
+                                    canvas.shape), 0, 1
+            ).astype(np.float32)
+    elif dense or rng.random() < 0.5:
+        canvas = canvas * rng.uniform(0.82, 0.95) + rng.uniform(0.02, 0.08)
+        if rng.random() < 0.6:  # scanner skew: integer row shifts
+            slope = rng.uniform(-0.012, 0.012)
+            skew_shift = (np.arange(size) * slope).astype(int)
+            for r in range(size):
+                if skew_shift[r]:
+                    canvas[r] = np.roll(canvas[r], skew_shift[r])
+        if rng.random() < 0.5:  # JPEG round trip (block artifacts)
+            from PIL import Image as _I
+            import io as _io
+
+            bio = _io.BytesIO()
+            _I.fromarray((canvas * 255).astype(np.uint8)).save(
+                bio, format="JPEG", quality=int(rng.integers(70, 92))
+            )
+            bio.seek(0)
+            canvas = np.asarray(_I.open(bio)).astype(np.float32) / 255.0
+        canvas = np.clip(
+            canvas + rng.normal(0, rng.uniform(0.01, 0.04), canvas.shape), 0, 1
+        ).astype(np.float32)
+    px_boxes = []
+    for b in boxes_pdf:
+        if not (b[2] > b[0] and b[3] > b[1] and b[0] * scale < size
+                and b[1] * scale < size):
+            continue
+        x0, y0, x1, y1 = (v * scale for v in b)
+        if skew_shift is not None:  # labels follow the row-shifted glyphs
+            yc = min(max(int((y0 + y1) / 2), 0), size - 1)
+            x0 += skew_shift[yc]
+            x1 += skew_shift[yc]
+        px_boxes.append([x0, y0, x1, y1])
+    return canvas, px_boxes
+
+
+
+def make_det_batch(
+    rng: np.random.Generator, batch: int = 8, size: int = 512,
+    sheet_frac: float = 0.25, dense_frac: float = 0.4,
+):
+    """-> (images (B,S,S,1), prob* (B,S/2,S/2), band (B,S/2,S/2),
+    thresh* (B,S/2,S/2)) — targets at half resolution."""
+    half = size // 2
+    imgs = np.zeros((batch, size, size, 1), np.float32)
+    prob_t = np.zeros((batch, half, half), np.float32)
+    band = np.zeros((batch, half, half), np.float32)
+    thr_t = np.zeros((batch, half, half), np.float32)
+    for i in range(batch):
+        canvas, boxes = render_det_page(rng, size, sheet_frac, dense_frac)
+        imgs[i, :, :, 0] = canvas
+        for b in boxes:
+            hx0, hy0, hx1, hy1 = (v / 2.0 for v in b)
+            sx0, sy0, sx1, sy1 = shrink_box(hx0, hy0, hx1, hy1)
+            sx0, sy0 = max(sx0, 0), max(sy0, 0)
+            sx1, sy1 = min(sx1, half), min(sy1, half)
+            if sx1 > sx0 and sy1 > sy0:
+                prob_t[i, sy0:sy1, sx0:sx1] = 1.0
+            # border band: expanded minus shrunk; thresh target high at
+            # the true border, falling to background outside (constant
+            # approximation of DB's distance-normalized map — exact for
+            # the axis-aligned line geometry this corpus has)
+            ex0 = max(int(hx0 - 2), 0)
+            ey0 = max(int(hy0 - 2), 0)
+            ex1 = min(int(np.ceil(hx1 + 2)), half)
+            ey1 = min(int(np.ceil(hy1 + 2)), half)
+            if ex1 > ex0 and ey1 > ey0:
+                band[i, ey0:ey1, ex0:ex1] = 1.0
+                thr_t[i, ey0:ey1, ex0:ex1] = 0.7
+        inner = prob_t[i] > 0
+        band[i][inner] = 1.0
+        thr_t[i][inner] = 0.3
+    return imgs, prob_t, band, thr_t
+
+
+# ------------------------------------------------------------------ loss
+
+
+def db_loss(model: Detector, imgs: torch.Tensor, prob_t: torch.Tensor,
+            band: torch.Tensor, thr_t: torch.Tensor) -> torch.Tensor:
+    """The DB loss of ``model`` on (B, 1, S, S) images against (B, S/2, S/2)
+    targets: BCE on the probability map with 3:1 online hard-negative
+    mining, L1 on the threshold map inside the border band, and the dice of
+    the differentiable binarization."""
+    out = model(imgs)
+    p_logit = out[:, 0]
+    t_pred = torch.sigmoid(out[:, 1])
+    # BCE with online hard-negative mining, 3:1 neg:pos (DB recipe)
+    bce = optax_sigmoid_bce(p_logit, prob_t)
+    pos = prob_t > 0.5
+    n_pos = pos.sum().clamp_min(1)
+    # torch.where, never a multiply by a mask: the positives are -inf here
+    neg_bce = torch.where(pos, -torch.inf, bce)
+    k = torch.minimum(3 * n_pos, bce.numel() - n_pos)
+    # lax.top_k over every pixel is a full descending sort. Uniform
+    # background gives exactly tied values, and which of them fall inside k
+    # decides where the gradient lands: a stable sort keeps ties in index
+    # order, the lower index first, as XLA's top_k does
+    topk = torch.sort(neg_bce.reshape(-1), descending=True, stable=True).values
+    idx = torch.arange(topk.numel(), device=topk.device)
+    neg_sum = torch.where(
+        idx < k, torch.where(torch.isfinite(topk), topk, 0.0), 0.0).sum()
+    l_prob = (torch.where(pos, bce, 0.0).sum() + neg_sum) / (n_pos + k)
+    # threshold map L1 inside the border band
+    l_thr = (torch.abs(t_pred - thr_t) * band).sum() / band.sum().clamp_min(1.0)
+    # differentiable binarization dice
+    b_hat = torch.sigmoid(50.0 * (torch.sigmoid(p_logit) - t_pred))
+    inter = (b_hat * prob_t).sum()
+    l_bin = 1.0 - 2.0 * inter / (b_hat.sum() + prob_t.sum() + 1e-6)
+    return l_prob + 10.0 * l_thr + l_bin
+
+
+def optax_sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    log_p = F.logsigmoid(logits)
+    log_np = F.logsigmoid(-logits)
+    return -(labels * log_p + (1.0 - labels) * log_np)
+
+
+# ------------------------------------------------------------- training
+
+
+def save_det_params(params, path: str = DET_OUT_PATH) -> None:
+    """Write a detector parameter tree (flax layout) as a flax msgpack file."""
+    from synapta_tpu_torch.models.msgpack_io import write_params
+
+    write_params(params, path)
+
+
+def make_det_train_step(model: Detector, tx):
+    """step(imgs, prob_t, band, thr_t) -> loss on a ``make_det_batch``
+    batch: one update of ``model`` by ``tx``, the loss left on the device."""
+    from synapta_tpu_torch.models.train import make_step
+
+    return make_step(model, tx, db_loss)
+
+
+def train_detector(
+    steps: int = 400,
+    batch: int = 8,
+    lr: float = 1e-3,
+    seed: int = 0,
+    size: int = 512,
+    out: str = DET_OUT_PATH,
+    init_from: str | None = None,
+    log_every: int = 50,
+    sheet_frac: float = 0.25,
+    dense_frac: float = 0.4,
+    device="cuda",
+) -> Dict:
+    """Train the detector on synthetic pages on ``device`` (bfloat16 compute
+    on the GPU, float32 on the CPU: ``train.compute_dtype``), from scratch
+    or from the checkpoint ``init_from``, with adamw over a 50-step warmup
+    and a cosine
+    decay to ``steps`` (optax raises when steps <= 50, and so does this).
+    Writes the float32 parameters to ``out`` every ``log_every`` steps and
+    at the end. Returns the run: the trained model, per-step losses, and
+    the wall, host data, host step and device step seconds (the last on
+    CUDA only: CUDA-event spans of each step's work)."""
+    from synapta_tpu_torch.hostlibs import ensure_synthdata_fonts
+    from synapta_tpu_torch.models.optim import adamw, warmup_cosine_decay_schedule
+    from synapta_tpu_torch.models.train import compute_dtype, run_steps
+
+    dev = resolve_device(device)
+    ensure_synthdata_fonts()
+    model = Detector(dtype=compute_dtype(dev), param_dtype=torch.float32)
+    if init_from:
+        model.load_state_dict(params_from_flax(load_det_params(init_from)))
+    else:
+        init_params(model, torch.Generator().manual_seed(seed))
+    model.to(dev).train()
+    tx = adamw(model.parameters(),
+               warmup_cosine_decay_schedule(0.0, lr, 50, steps))
+    step_fn = make_det_train_step(model, tx)
+    run = run_steps(
+        step_fn, lambda rng: make_det_batch(rng, batch, size, sheet_frac,
+                                            dense_frac),
+        np.random.default_rng(seed), steps, log_every, dev,
+        lambda: save_det_params(params_to_flax(model.state_dict()), out))
+    save_det_params(params_to_flax(model.state_dict()), out)
+    print(f"saved -> {out}")
+    run["model"] = model.eval()
+    return run
+
 
 
 # ------------------------------------------------------------------ host
@@ -656,3 +1102,28 @@ class DBLineDetector:
             rows.sort(key=lambda bb: (bb[1], bb[0]))
             out.append(rows)
         return out
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=400)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--out", default=DET_OUT_PATH)
+    ap.add_argument("--init-from", default=None)
+    ap.add_argument("--sheet-frac", type=float, default=0.25)
+    ap.add_argument("--dense-frac", type=float, default=0.4)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (default) or cpu")
+    args = ap.parse_args()
+    # the synthetic pages are drawn by the native PDF engine, which needs
+    # libjpeg.so.62; re-exec with Pillow's copy where the system has none
+    from synapta_tpu_torch.hostlibs import ensure_native_engine
+
+    ensure_native_engine(["-m", "synapta_tpu_torch.models.detector", *sys.argv[1:]])
+    train_detector(args.steps, args.batch, args.lr, args.seed, args.size,
+                   args.out, args.init_from,
+                   sheet_frac=args.sheet_frac, dense_frac=args.dense_frac,
+                   device=args.device)

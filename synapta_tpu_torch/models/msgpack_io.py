@@ -1,9 +1,11 @@
-"""A jax-free reader for the flax msgpack weight files.
+"""A jax-free reader and writer for the flax msgpack weight files.
 
-``flax.serialization.msgpack_restore`` needs jax; the port only needs the
-subset flax writes for a parameter tree: maps, arrays, str, bin, nil, bool,
-ints, floats, and ExtType code 1 (ndarray: msgpack of ``(shape, dtype name,
-raw bytes)``) and code 3 (numpy scalar, same payload).
+``flax.serialization.msgpack_restore`` and ``msgpack_serialize`` need jax
+and the ``msgpack`` package; the port only needs the subset flax writes for
+a parameter tree: maps, arrays, str, bin, nil, bool, ints, floats, and
+ExtType code 1 (ndarray: msgpack of ``(shape, dtype name, raw bytes)``) and
+code 3 (numpy scalar, same payload). The writer gives the same bytes as
+flax's for such a tree.
 """
 from __future__ import annotations
 
@@ -119,6 +121,90 @@ def msgpack_restore(data: bytes):
     if r.i != len(r.b):
         raise ValueError("trailing bytes after msgpack value")
     return out
+
+
+def _pack(v, out: list) -> None:
+    """Append the msgpack encoding of v (the smallest form msgpack-python
+    picks, bin type on) to out."""
+    def sized(n, fix, fix_max, tags):
+        if n <= fix_max:
+            out.append(bytes([fix | n]))
+            return
+        for tag, fmt in tags:
+            if n < 1 << (8 * struct.calcsize(fmt)):
+                out.append(bytes([tag]) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    if isinstance(v, dict):
+        sized(len(v), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I")))
+        for k in sorted(v):  # flax copies the tree with jax's tree_map,
+            _pack(k, out)    # which rebuilds every dict in sorted key order
+            _pack(v[k], out)
+    elif isinstance(v, (list, tuple)):
+        sized(len(v), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I")))
+        for x in v:
+            _pack(x, out)
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        sized(len(b), 0xA0, 31, ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+        out.append(b)
+    elif isinstance(v, bytes):
+        sized(len(v), 0, -1, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+        out.append(v)
+    elif v is None or isinstance(v, bool):
+        out.append(bytes([{None: 0xC0, False: 0xC2, True: 0xC3}[v]]))
+    elif isinstance(v, (np.ndarray, np.generic)):  # before float: np.float64
+        code = _EXT_NDARRAY if isinstance(v, np.ndarray) else _EXT_NPSCALAR
+        arr = np.asarray(v)
+        if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+            raise ValueError("object and structured dtypes are not supported")
+        if arr.nbytes > 1 << 30:
+            raise ValueError("arrays above 2**30 bytes are chunked by flax; "
+                             "not supported")
+        payload = msgpack_serialize(
+            (arr.shape, arr.dtype.name, arr.tobytes("C")))
+        n = len(payload)
+        if n in _FIXEXT.values():
+            out.append(bytes([{m: t for t, m in _FIXEXT.items()}[n]]))
+        else:
+            sized(n, 0, -1, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        out.append(struct.pack(">b", code) + payload)
+    elif isinstance(v, int):
+        if 0 <= v <= 0x7F or -32 <= v < 0:
+            out.append(struct.pack(">b" if v < 0 else ">B", v))
+            return
+        tags = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) \
+            if v >= 0 else ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q"))
+        for tag, fmt in tags:
+            try:
+                out.append(bytes([tag]) + struct.pack(fmt, v))
+                return
+            except struct.error:
+                continue
+        raise ValueError(f"integer {v} out of msgpack range")
+    elif isinstance(v, float):
+        out.append(b"\xcb" + struct.pack(">d", v))
+    else:
+        raise TypeError(f"cannot msgpack {type(v).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """flax.serialization.msgpack_serialize for parameter trees: nested
+    dicts (written in sorted key order, as flax writes them), lists and tuples, str, bytes, None, bool,
+    int, float and numpy arrays and scalars, byte for byte as flax writes
+    them."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def write_params(tree, path: str) -> None:
+    """Write a parameter tree to ``path`` as flax's ``to_bytes`` does (the
+    directory is made if missing)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(tree))
 
 
 def load_params(path: str = WEIGHTS_PATH):

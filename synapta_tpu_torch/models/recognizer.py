@@ -14,7 +14,12 @@ Parity with the flax module (each pinned by a test):
 
 The convs and matmuls go to cuDNN/cuBLAS, as the JAX package leaves them to
 XLA. ``dtype`` is the compute dtype of the trunk (bfloat16 in production);
-parameters are stored in it, the head stays float32.
+``param_dtype`` is the dtype the parameters are stored in: float32 for
+training, as flax keeps them, each weight cast to ``dtype`` where flax casts
+it (conv and Dense kernels and biases, ``pos_embed``; LayerNorm computes in
+float32 and casts its result). ``recognizer_from_flax`` stores them in the
+compute dtype for inference, which gives the same values. The head stays
+float32. ``init_params`` draws a fresh model with flax's initialisers.
 """
 from __future__ import annotations
 
@@ -36,11 +41,58 @@ def _same_pad(n: int, stride: int, k: int = 3):
     return total // 2, total - total // 2
 
 
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax's LayerNorm: with float32 parameters and a lower compute dtype,
+    statistics and affine in float32 and the result cast to x's dtype (torch
+    takes no such mix on CUDA); with parameters in x's dtype, torch's own."""
+    if ln.weight.dtype == x.dtype:
+        return ln(x)
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(x.dtype)
+
+
+def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """A Linear with its parameters cast to x's dtype, as flax's Dense casts
+    them to its compute dtype."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+# The standard deviation of a unit normal truncated to [-2, 2]: flax's
+# variance_scaling divides by it so the truncated draw keeps its variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal`` in place: a normal truncated to two standard
+    deviations, variance 1/fan_in. fan_in is w[0].numel(): in × kh × kw of
+    an OIHW conv, in of a Linear, and D of every attention projection (flax's
+    (D, heads, hd) and (heads, hd, D) kernels flatten to a fan-in of D)."""
+    std = math.sqrt(1.0 / w[0].numel()) / _TRUNC_STD
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def flax_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default initialisers on every conv, Linear and LayerNorm in
+    ``module``: lecun_normal kernels, zero biases, LayerNorm ones and
+    zeros (torch's defaults train another model: kaiming-uniform kernels,
+    non-zero uniform biases)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
 class EncoderBlock(nn.Module):
     def __init__(self, dim: int, heads: int = 4, mlp_ratio: int = 2,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=param_dtype)
         self.heads = heads
         self.dtype = dtype
         self.ln0 = nn.LayerNorm(dim, eps=1e-6, **kw)
@@ -55,28 +107,30 @@ class EncoderBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, D)
         B, T, D = x.shape
         hd = D // self.heads
-        h = self.ln0(x)
+        h = _layer_norm(self.ln0, x)
 
         def split(t):  # (B, T, D) -> (B, heads, T, hd)
             return t.view(B, T, self.heads, hd).transpose(1, 2)
 
         scale = torch.tensor(math.sqrt(hd), dtype=self.dtype, device=x.device)
-        q = split(self.query(h)) / scale
-        k = split(self.key(h))
-        v = split(self.value(h))
+        q = split(_dense(self.query, h)) / scale
+        k = split(_dense(self.key, h))
+        v = split(_dense(self.value, h))
         w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
         a = (w @ v).transpose(1, 2).reshape(B, T, D)
-        x = x + self.out(a)
-        h = self.fc1(F.gelu(self.fc0(self.ln1(x)), approximate="tanh"))
+        x = x + _dense(self.out, a)
+        h = _dense(self.fc1, F.gelu(_dense(self.fc0, _layer_norm(self.ln1, x)),
+                                    approximate="tanh"))
         return x + h
 
 
 class Recognizer(nn.Module):
     def __init__(self, num_classes: int = NUM_CLASSES, dim: int = 192,
                  blocks: int = 2, seq_len: int = 96,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(dtype=dtype)
+        kw = dict(dtype=param_dtype)
         self.dtype = dtype
         self.strides = [(1, 1), (2, 2), (2, 2), (2, 1), (2, 1)]
         chans = [1, 32, 64, 128, dim, dim]
@@ -86,7 +140,8 @@ class Recognizer(nn.Module):
         )
         self.pos_embed = nn.Parameter(torch.zeros(1, seq_len, dim, **kw))
         self.blocks = nn.ModuleList(
-            EncoderBlock(dim, dtype=dtype) for _ in range(blocks)
+            EncoderBlock(dim, dtype=dtype, param_dtype=param_dtype)
+            for _ in range(blocks)
         )
         self.norm = nn.LayerNorm(dim, eps=1e-6, **kw)
         self.head = nn.Linear(dim, num_classes, dtype=torch.float32)
@@ -96,12 +151,13 @@ class Recognizer(nn.Module):
         for conv, (sh, sw) in zip(self.convs, self.strides):
             ph = _same_pad(x.shape[2], sh)
             pw = _same_pad(x.shape[3], sw)
-            x = F.relu(conv(F.pad(x, (*pw, *ph))))
+            x = F.relu(F.conv2d(F.pad(x, (*pw, *ph)), conv.weight.to(x.dtype),
+                                conv.bias.to(x.dtype), conv.stride))
         x = x.mean(dim=2).transpose(1, 2)  # collapse height -> (B, T, dim)
-        x = x + self.pos_embed
+        x = x + self.pos_embed.to(self.dtype)
         for blk in self.blocks:
             x = blk(x)
-        x = self.norm(x)
+        x = _layer_norm(self.norm, x)
         return self.head(x.to(torch.float32))
 
 
@@ -147,14 +203,74 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def params_to_flax(sd, heads: int = 4) -> Dict:
+    """The exact inverse of ``params_from_flax``: a Recognizer state_dict ->
+    the flax parameter tree (float32 numpy leaves), keys in flax's creation
+    order, attention kernels and biases in flax's (D, heads, hd),
+    (heads, hd) and (heads, hd, D) layouts."""
+    def a(key):
+        return np.ascontiguousarray(
+            sd[key].detach().to("cpu", torch.float32).numpy())
+
+    tree: Dict = {}
+    i = 0
+    while f"convs.{i}.weight" in sd:
+        tree[f"Conv_{i}"] = {
+            "kernel": np.ascontiguousarray(a(f"convs.{i}.weight").transpose(2, 3, 1, 0)),
+            "bias": a(f"convs.{i}.bias"),
+        }
+        i += 1
+    tree["pos_embed"] = a("pos_embed")
+    j = 0
+    while f"blocks.{j}.ln0.weight" in sd:
+        pre = f"blocks.{j}."
+
+        def ln(name):
+            return {"scale": a(pre + name + ".weight"), "bias": a(pre + name + ".bias")}
+
+        def dense(name):
+            return {"kernel": np.ascontiguousarray(a(pre + name + ".weight").T),
+                    "bias": a(pre + name + ".bias")}
+
+        att = {}
+        for name in ("query", "key", "value"):
+            w = a(pre + name + ".weight")  # (heads*hd, D)
+            att[name] = {
+                "kernel": np.ascontiguousarray(w.T.reshape(w.shape[1], heads, -1)),
+                "bias": a(pre + name + ".bias").reshape(heads, -1),
+            }
+        w = a(pre + "out.weight")  # (D, heads*hd)
+        att["out"] = {"kernel": np.ascontiguousarray(w.T.reshape(heads, -1, w.shape[0])),
+                      "bias": a(pre + "out.bias")}
+        tree[f"EncoderBlock_{j}"] = {
+            "LayerNorm_0": ln("ln0"), "MultiHeadDotProductAttention_0": att,
+            "LayerNorm_1": ln("ln1"), "Dense_0": dense("fc0"), "Dense_1": dense("fc1"),
+        }
+        j += 1
+    tree["LayerNorm_0"] = {"scale": a("norm.weight"), "bias": a("norm.bias")}
+    tree["Dense_0"] = {"kernel": np.ascontiguousarray(a("head.weight").T),
+                       "bias": a("head.bias")}
+    return tree
+
+
+def init_params(model: Recognizer, generator: torch.Generator) -> Recognizer:
+    """flax's initialisers on ``model`` in place: lecun_normal kernels, zero
+    biases, LayerNorm ones and zeros, ``pos_embed`` ~ N(0, 0.02)."""
+    flax_init_(model, generator)
+    nn.init.normal_(model.pos_embed, 0.0, 0.02, generator=generator)
+    return model
+
+
 def recognizer_from_flax(tree, dtype: torch.dtype = torch.bfloat16,
-                         device="cpu") -> Recognizer:
-    """Build a Recognizer whose shape follows the flax tree, load it, and
-    put it in eval mode on ``device``."""
+                         device="cuda") -> Recognizer:
+    """Build a Recognizer whose shape follows the flax tree, load it with its
+    parameters stored in ``dtype`` (inference), and put it in eval mode on
+    ``device``."""
     sd = params_from_flax(tree)
     _, seq_len, dim = sd["pos_embed"].shape
     blocks = sum(1 for k in tree if k.startswith("EncoderBlock_"))
     model = Recognizer(num_classes=sd["head.weight"].shape[0], dim=dim,
-                       blocks=blocks, seq_len=seq_len, dtype=dtype)
+                       blocks=blocks, seq_len=seq_len, dtype=dtype,
+                       param_dtype=dtype)
     model.load_state_dict(sd)
     return model.to(device).eval()

@@ -7,7 +7,9 @@ also runs on a GPU machine without JAX, bypassing the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Inputs are seeded numpy arrays and crops drawn with Pillow; results must
-be bit-identical, and the CC kernel's rounds must equal the twin's.
+be bit-identical, and the CC kernel's rounds must equal the twin's. The two
+trainers' steps (no kernel of their own: cuDNN, cuBLAS and torch's CTC) are
+held to their CPU runs within the tolerances each test states.
 """
 import numpy as np
 import pytest
@@ -161,3 +163,81 @@ def test_db_site_cc_equals_twin():
     boxes = D.mask_boxes(mask)
     assert connected_components_cuda.launches == n + 1
     assert torch.equal(boxes.cpu(), D.mask_boxes(mask.cpu()))
+
+
+def _step_cuda_vs_cpu(make_model, make_step, batch):
+    """One optimiser step of the same float32 model on the GPU and on the
+    CPU, constant lr 1e-3 (the trainers' schedules start at 0): the losses,
+    the gradients and the updated parameters side by side."""
+    from synapta_tpu_torch.models import optim
+
+    runs = []
+    for dev in ("cuda", "cpu"):
+        torch.manual_seed(0)
+        model = make_model().to(dev)
+        step = make_step(model, optim.adamw(model.parameters(), 1e-3))
+        loss = float(step(*batch))
+        runs.append((loss, {k: (p.detach().cpu(), p.grad.cpu())
+                            for k, p in model.named_parameters()}))
+    (l_gpu, p_gpu), (l_cpu, p_cpu) = runs
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu), (l_gpu, l_cpu)
+    close = total = 0
+    for k, (w_cpu, g_cpu) in p_cpu.items():
+        w_gpu, g_gpu = p_gpu[k]
+        scale = float(g_cpu.abs().max())
+        assert float((g_gpu - g_cpu).abs().max()) <= 1e-3 * scale + 1e-7, k
+        # Adam's first step is lr × sign(g) where |g| >> eps: a gradient at
+        # rounding level may take the other sign, 2 lr apart
+        d = (w_gpu - w_cpu).abs()
+        assert float(d.max()) <= 2e-3 + 1e-6, k
+        close += int((d <= 1e-6).sum())
+        total += d.numel()
+    assert close >= 0.999 * total, (close, total)
+
+
+@pytest.mark.cuda
+def test_recognizer_train_step_cuda_equals_cpu():
+    """The full-width recognizer (dim 192, 2 blocks, 32 × 384 tiles), a
+    batch of 8 synthetic lines, float32 on both devices (TF32 off)."""
+    _need_cuda()
+    from synapta_tpu_torch.device import resolve_device
+    from synapta_tpu_torch.hostlibs import ensure_synthdata_fonts
+    from synapta_tpu_torch.models import train as T
+    from synapta_tpu_torch.models.recognizer import params_from_flax
+    from synapta_tpu_torch.models.synthdata import make_batch
+
+    resolve_device("cuda")
+    ensure_synthdata_fonts()
+    tree = T.init_params(torch.Generator().manual_seed(0))
+
+    def make_model():
+        m = T.create_model(torch.float32)
+        m.load_state_dict(params_from_flax(tree))
+        return m
+
+    _step_cuda_vs_cpu(make_model, T.make_train_step,
+                      make_batch(np.random.default_rng(0), batch=8))
+
+
+@pytest.mark.cuda
+def test_detector_train_step_cuda_equals_cpu():
+    """The detector at 512², float32, on 2 drawn pages with targets from
+    their ink (half resolution: the ink as the shrunk-text map and the
+    band, threshold 0.3 there)."""
+    _need_cuda()
+    from synapta_tpu_torch.device import resolve_device
+    from synapta_tpu_torch.models import detector as D
+
+    resolve_device("cuda")
+    imgs = (_drawn(2, 512) / 255.0).astype(np.float32)[..., None]
+    prob_t = (imgs[:, ::2, ::2, 0] < 0.5).astype(np.float32)
+    sd = D.init_params(D.Detector(dtype=torch.float32),
+                       torch.Generator().manual_seed(0)).state_dict()
+
+    def make_model():
+        m = D.Detector(dtype=torch.float32)
+        m.load_state_dict(sd)
+        return m
+
+    _step_cuda_vs_cpu(make_model, D.make_det_train_step,
+                      (imgs, prob_t, prob_t, 0.3 * prob_t))

@@ -59,7 +59,7 @@ def scanned():
 
 
 def _port_logits(tree, x_nhwc):
-    m = tdet.detector_from_flax(tree, dtype=torch.float32)
+    m = tdet.detector_from_flax(tree, dtype=torch.float32, device="cpu")
     with torch.no_grad():
         out = m(torch.from_numpy(x_nhwc).permute(0, 3, 1, 2))
     return out.permute(0, 2, 3, 1).numpy()
@@ -86,7 +86,7 @@ def test_state_dict_names_follow_flax(tree):
     sd = tdet.params_from_flax(tree)
     assert tuple(sd["lat.1.weight"].shape) == (64, 96, 1, 1)
     assert tuple(sd["lat.3.weight"].shape) == (16, 16, 1, 1)
-    m = tdet.detector_from_flax(tree, dtype=torch.bfloat16)
+    m = tdet.detector_from_flax(tree, dtype=torch.bfloat16, device="cpu")
     assert m.blocks[0].conv.weight.dtype == torch.bfloat16
     assert m.blocks[0].gn_scale.dtype == torch.float32
     assert m.head.weight.dtype == torch.float32 and m.head.bias is not None

@@ -8,7 +8,8 @@
   and no module of the JAX package; no file of the port and not
   chip_smoke.py imports either (read from the syntax tree).
 - Every verbatim host-code copy (functions, the refine knobs and whole
-  host modules) equals its original source, except that ``from
+  host modules, the training-line generator and the detector's synthetic
+  pages and targets among them) equals its original source, except that ``from
   synapta_tpu`` imports name ``synapta_tpu_torch`` and for the named
   substitutions (the device arguments of collect_tiles, db_detector, the
   evaluations and the book queue; the DB detector's device dispatch; the
@@ -123,7 +124,8 @@ def test_import_is_jax_free():
         "import sys, synapta_tpu_torch, synapta_tpu_torch.pipeline, "
         "synapta_tpu_torch.cli, synapta_tpu_torch.ops.features, "
         "synapta_tpu_torch.models.detector, synapta_tpu_torch.eval, "
-        "synapta_tpu_torch.serve; "
+        "synapta_tpu_torch.serve, synapta_tpu_torch.models.train, "
+        "synapta_tpu_torch.models.synthdata, synapta_tpu_torch.models.optim; "
         "print(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {_BANNED!r}))"
     )
@@ -164,7 +166,7 @@ _HOST_MODULES = (
     "utils.log", "utils.profiler", "schema", "config", "models.charset",
     "io.ingest", "io.writers", "io.xlsx", "io.loader", "vision.captions",
     "vision.detect", "ocr.heuristics", "llm.prompts", "llm.pixtral",
-    "llm.fake", "linker.concepts", "io.pdf_writer",
+    "llm.fake", "linker.concepts", "io.pdf_writer", "models.synthdata",
 )
 
 
@@ -256,9 +258,11 @@ def _copies():
     import synapta_tpu.serve as jserve
     import synapta_tpu_torch.eval as tev
     import synapta_tpu_torch.models.detector as tdet
+    import synapta_tpu_torch.models.train as ttrain
     import synapta_tpu_torch.serve as tserve
 
-    for name in ("unshrink_boxes", "_snap_box_to_ink", "refine_line_boxes"):
+    for name in ("unshrink_boxes", "_snap_box_to_ink", "refine_line_boxes",
+                 "shrink_box", "render_det_page", "make_det_batch"):
         out.append((f"detector.{name}", getattr(tdet, name),
                     getattr(jdet, name), []))
     out.append(("detector.knobs", _knobs(tdet), _knobs(jdet), []))
@@ -275,6 +279,7 @@ def _copies():
                 tpipe.VisualSegmentationPipeline.__dict__["_ocr_dispatch"],
                 jpipe.VisualSegmentationPipeline.__dict__["_ocr_dispatch"], []))
     out.append(("eval.cer", tev.cer, jtrain.cer, []))
+    out.append(("train.cer", ttrain.cer, jtrain.cer, []))
     for name in ("norm_text", "_prep_standalone", "_box_iou", "_box_containment",
                  "_best_window_cer", "evaluate_golden_crop", "evaluate_book",
                  "evaluate_scanned"):
@@ -397,10 +402,10 @@ def _source(obj):
     return inspect.getsource(obj)
 
 
-@pytest.mark.parametrize("idx", range(70))
+@pytest.mark.parametrize("idx", range(75))
 def test_verbatim_copy(idx):
     copies = _copies()
-    assert len(copies) == 70
+    assert len(copies) == 75
     name, port, orig, subs = copies[idx]
     want = _source(orig)
     for a, b in subs:

@@ -89,7 +89,7 @@ def test_small_recognizer_f32_matches_flax(width):
     model, tree = _small_flax(width=width)
     x = np.random.default_rng(1).random((3, 32, width, 1)).astype(np.float32)
     want = np.asarray(model.apply({"params": tree}, jnp.asarray(x)))
-    tm = trec.recognizer_from_flax(tree, dtype=torch.float32)
+    tm = trec.recognizer_from_flax(tree, dtype=torch.float32, device="cpu")
     with torch.no_grad():
         got = tm(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
     assert got.shape == want.shape
@@ -141,7 +141,7 @@ def test_encoder_block_hazards_match_flax():
 
 def test_head_runs_float32_on_bf16_trunk():
     tree = jax.tree.map(np.asarray, jax_load_params(msgpack_io.WEIGHTS_PATH))
-    m = trec.recognizer_from_flax(tree, dtype=torch.bfloat16)
+    m = trec.recognizer_from_flax(tree, dtype=torch.bfloat16, device="cpu")
     assert m.convs[0].weight.dtype == torch.bfloat16
     assert m.head.weight.dtype == torch.float32
     with torch.no_grad():
