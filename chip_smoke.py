@@ -30,23 +30,40 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   the checkpoint reads back to the trained model's logits); the shipped
   recognizer's CER on 256 synthetic lines (< 0.05); and
   ``models.detector.train_detector(device="cuda")`` from scratch, 60 steps
-  of 8 pages at 512², with steps/s, samples/s and the host's data share.
+  of 8 pages at 512², with steps/s, samples/s and the host's data share;
+- multi-device execution (synapta_tpu_torch/parallel) on the one card:
+  both kernels against their twins at the shard shapes, each shard on a
+  stream of its own (``dp_kernels``); one 16-crop chunk through
+  ``device_analyze`` on a 2-shard virtual data mesh, equal to the unsharded
+  pass (``dp_analyze``); the 64-page book on that mesh, with the segments of
+  the mesh-of-one run and twice its kernel launches (``dp_pipeline``); in a
+  spawned process an NCCL group of one rank: three float32 steps of
+  ``make_dp_tp_train_step`` at full width against ``make_train_step``, then
+  ``train(use_mesh=True, device="cuda")`` for 101 steps
+  (``dist_nccl_ws1``); two spawned ranks that share the card over gloo, dp 2
+  and then tp 2, against the same single-process steps
+  (``dist_two_ranks``); ``graft_entry.dryrun_multichip(2, "cuda")``
+  (``dryrun``) and the ``graft_entry.entry()`` forward (``entry``).
 
-Kernel launch counters are set to 0 just before each of the 64-page and the
-16-page scanned runs and read just after. Every phase prints one JSON line;
-any failure exits nonzero. The last line is
+Kernel launch counters are set to 0 just before each of the 64-page, the
+16-page scanned and the 2-shard 64-page runs and read just after. Every
+phase prints one JSON line; any failure exits nonzero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 
 ``--profile`` runs the 64-page book, the 16-page scanned book, one DB chunk
 (model, post stage) and one step of each trainer (its batch drawn on the
-host included) once more under torch.profiler (device-busy share, device
-time by kernel; traces in chiprun_out/). There is no CPU fallback:
+host included) once more under ``utils.profiler.torch_trace`` (device-busy
+share, device time by kernel; traces in trace_<label>/ of the output
+directory, beside the build log). There is no CPU fallback:
 without CUDA the script exits 1 and prints no result. Synthetic inputs are
 made from fixed seeds.
 """
 from __future__ import annotations
 
+import contextlib
+import glob
+import io
 import json
 import math
 import os
@@ -124,6 +141,93 @@ def cuda_ms(fn, runs: int = 10, warmup: int = 2) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def forked_ms(mesh, fns, runs: int = 10, warmup: int = 2) -> float:
+    """Median device time in ms of fns[i]() enqueued on shard i's stream of
+    a data mesh, all shards at once: from a fork off the current stream to
+    the join back onto it."""
+    import torch
+
+    main = torch.cuda.current_stream()
+
+    def both():
+        for i, fn in enumerate(fns):
+            mesh.streams[i].wait_stream(main)
+            with mesh.stream(i):
+                fn()
+        for st in mesh.streams:
+            main.wait_stream(st)
+
+    return cuda_ms(both, runs, warmup)
+
+
+TRAIN_SCHEDULE = (0.0, 1e-3, 2, 10)  # warmup 2 of 10: steps 2 and 3 move
+
+
+def dist_steps(rank, world, coordinator, backend, model_axis, tree, batches):
+    """One rank of the dp x tp parity phases: join over ``backend``, lay the
+    ranks out data x model, cut the full-width float32 recognizer over
+    'model' and take one ``make_dp_tp_train_step`` step per global batch ->
+    (mesh shape, losses, the gathered parameters by torch name, timings:
+    the mean wall of the steps after the first, and of one all-reduce of a
+    float32 buffer as long as the model's gradients, over every rank)."""
+    import torch
+    import torch.distributed as dist
+
+    from synapta_tpu_torch.models import optim
+    from synapta_tpu_torch.models import recognizer as R
+    from synapta_tpu_torch.models import train as T
+    from synapta_tpu_torch.parallel import mesh as M
+
+    if M.init_distributed(coordinator, world, rank, backend, "cuda") is not True:
+        raise RuntimeError("init_distributed joined no process group")
+    try:
+        mesh = M.make_mesh(world, model_axis=model_axis, device="cuda")
+        model = T.create_model(torch.float32)
+        model.load_state_dict(R.params_from_flax(tree))
+        model = M.shard_params(model.to("cuda"), mesh).train()
+        step = M.make_dp_tp_train_step(model, optim.adamw(
+            model.parameters(),
+            optim.warmup_cosine_decay_schedule(*TRAIN_SCHEDULE), b2=0.98), mesh)
+        losses, walls = [], []
+        for b in batches:
+            t = time.perf_counter()
+            losses.append(float(step(*b)))  # reading the loss waits for the step
+            walls.append(time.perf_counter() - t)
+        full = M.unshard_params(model, mesh)
+        flat = torch.zeros(sum(v.numel() for v in full.values()), device="cuda")
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        timings = {"step_ms": sum(walls[1:]) / len(walls[1:]) * 1e3,
+                   "allreduce_ms": (time.perf_counter() - t) / 5 * 1e3,
+                   "allreduce_bytes": flat.numel() * 4}
+        params = {k: v.double().cpu().numpy() for k, v in full.items()}
+        return M.mesh_shape(mesh), losses, params, timings
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_train(rank, world, coordinator, steps, seed, out):
+    """One rank of ``train(use_mesh=True, device="cuda")``, joined through
+    the three env vars as the CLI's ``--mesh`` is (NCCL) -> the run without
+    its model."""
+    import torch.distributed as dist
+
+    from synapta_tpu_torch.models import train as T
+
+    os.environ.update(SYNAPTA_COORDINATOR=coordinator,
+                      SYNAPTA_NUM_PROCESSES=str(world),
+                      SYNAPTA_PROCESS_ID=str(rank))
+    run = T.train(steps=steps, batch=64, seed=seed, out=out, log_every=50,
+                  device="cuda", use_mesh=True)
+    run.pop("model")
+    run["group_left"] = dist.is_initialized()
+    return run
 
 
 def prepare(pdf: str, pages):
@@ -421,12 +525,13 @@ def main() -> int:
     from synapta_tpu_torch.utils.profiler import TIMERS
     from synapta_tpu_torch.pipeline import VisualSegmentationPipeline
 
-    def run(pdf, out, device):
+    def run(pdf, out, device, mesh=None):
         pipe = VisualSegmentationPipeline(
             book_id="smoke", pdf_path=pdf, output_dir=out, use_mermaid=False,
             config=PipelineConfig(use_vision_llm=False),
             llm_client=DisabledClient(), resume=False, device=device,
         )
+        pipe.mesh = mesh  # None: the pipeline builds its own
         t = time.perf_counter()
         segs = pipe.process()
         torch.cuda.synchronize()
@@ -484,12 +589,17 @@ def main() -> int:
                 hits += str(getattr(s.segment_type, "value", s.segment_type)) == expected[k]
     emit("e2e_64page", pages=st.pages, regions=st.regions, segments=len(segs),
          errors=st.errors, chunks=chunks, launches=launches, outputs_written=written,
+         mesh=pipe.mesh.shape,
          visual_page_recall=recall, classified=[hits, total],
          wall_s=wall, pages_per_s=st.pages / wall,
          host_stage_s=dict(sorted(stage_s.items(), key=lambda kv: -kv[1])),
          **CARD)
     if st.errors or not segs or not written:
         return fail("64-page run had errors, no segments, or no outputs")
+    if torch.cuda.device_count() == 1 and (
+            pipe.mesh.shape != {"data": 1} or pipe.mesh.streams != (None,)):
+        return fail(f"the default pipeline's mesh on one card is {pipe.mesh}")
+    book64_pages_per_s = st.pages / wall
     if launches["cc"] < 4 * chunks or launches["edge_stats"] < chunks or chunks == 0:
         return fail(f"kernel launches {launches} too few for {chunks} chunks")
     if recall < 0.95 or total == 0 or hits / total < 0.75:
@@ -621,15 +731,41 @@ def main() -> int:
 
     def three_steps(model, make_step, batches, device, **betas):
         """3 updates at warmup 2 of 10 (peak 1e-3: steps 2 and 3 move the
-        parameters) -> (losses, parameter deltas on the CPU in float64)."""
+        parameters) -> (losses, parameter deltas on the CPU in float64, the
+        mean wall ms of the steps after the first)."""
         model = model.to(device)
         p0 = {k: v.detach().double().cpu() for k, v in model.named_parameters()}
         step = make_step(model, optim.adamw(
             model.parameters(), optim.warmup_cosine_decay_schedule(
-                0.0, 1e-3, 2, 10), **betas))
-        losses = [float(step(*b)) for b in batches]
+                *TRAIN_SCHEDULE), **betas))
+        losses, walls = [], []
+        for b in batches:
+            t = time.perf_counter()
+            losses.append(float(step(*b)))  # reading the loss waits for the step
+            walls.append(time.perf_counter() - t)
         return losses, {k: v.detach().double().cpu() - p0[k]
-                        for k, v in model.named_parameters()}
+                        for k, v in model.named_parameters()}, (
+            sum(walls[1:]) / len(walls[1:]) * 1e3)
+
+    def steps_parity(l_got, d_got, l_want, d_want):
+        """Losses and parameter deltas of one run of the steps against
+        another's, in the measures ``TRAIN_PARITY`` bounds."""
+        diff = {k: d_got[k] - d_want[k] for k in d_want}
+        n_el = sum(d.numel() for d in diff.values())
+        return {
+            "loss_rel_err": max(abs(a - b) / abs(b)
+                                for a, b in zip(l_got, l_want)),
+            "delta_rel_norm_err": math.sqrt(sum(float((d ** 2).sum())
+                                                for d in diff.values()))
+            / math.sqrt(sum(float((d ** 2).sum()) for d in d_want.values())),
+            "param_max_abs_err": max(float(d.abs().max()) for d in diff.values()),
+            "param_share_within_1e-6": sum(int((d.abs() <= 1e-6).sum())
+                                           for d in diff.values()) / n_el}
+
+    def steps_differ(p):
+        return (p["loss_rel_err"] > TRAIN_PARITY["loss_rel"]
+                or p["delta_rel_norm_err"] > TRAIN_PARITY["delta_rel_norm"]
+                or p["param_max_abs_err"] > TRAIN_PARITY["param_max_abs"])
 
     def first_loss(model, objective, batch):
         with torch.no_grad():
@@ -640,12 +776,13 @@ def main() -> int:
             ("recognizer", rec_model, T.make_train_step, rec_batches,
              {"b2": 0.98}),
             ("detector", det_model, D.make_det_train_step, det_batches, {})):
-        l_gpu, d_gpu = three_steps(model_fn(torch.float32), make_step, batches,
-                                   dev, **betas)
-        l_cpu, d_cpu = three_steps(model_fn(torch.float32), make_step, batches,
-                                   "cpu", **betas)
-        diff = {k: d_gpu[k] - d_cpu[k] for k in d_cpu}
-        n_el = sum(d.numel() for d in diff.values())
+        l_gpu, d_gpu, ms_gpu = three_steps(model_fn(torch.float32), make_step,
+                                           batches, dev, **betas)
+        l_cpu, d_cpu, _ = three_steps(model_fn(torch.float32), make_step,
+                                      batches, "cpu", **betas)
+        if model_name == "recognizer":
+            # what the ranks' steps must give, and the wall of one such step
+            rec_single, rec_single_step_ms = (l_gpu, d_gpu), ms_gpu
         # the first step's loss in bf16 on the card against float32 on the CPU
         if model_name == "recognizer":
             x, y, n = rec_batches[0]
@@ -662,21 +799,12 @@ def main() -> int:
         f32 = first_loss(model_fn(torch.float32), objective, args)
         parity[model_name] = {
             "losses_cuda": l_gpu, "losses_cpu": l_cpu,
-            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu)),
-            "delta_rel_norm_err": math.sqrt(sum(float((d ** 2).sum())
-                                                for d in diff.values()))
-            / math.sqrt(sum(float((d ** 2).sum()) for d in d_cpu.values())),
-            "param_max_abs_err": max(float(d.abs().max()) for d in diff.values()),
-            "param_share_within_1e-6": sum(int((d.abs() <= 1e-6).sum())
-                                           for d in diff.values()) / n_el,
+            **steps_parity(l_gpu, d_gpu, l_cpu, d_cpu),
             "bf16_cuda_loss": bf16, "f32_cpu_loss": f32,
             "bf16_loss_rel_err": abs(bf16 - f32) / abs(f32)}
     emit("train_step_parity", **parity, bars=TRAIN_PARITY, **CARD)
     for model_name, p in parity.items():
-        if (p["loss_rel_err"] > TRAIN_PARITY["loss_rel"]
-                or p["delta_rel_norm_err"] > TRAIN_PARITY["delta_rel_norm"]
-                or p["param_max_abs_err"] > TRAIN_PARITY["param_max_abs"]
-                or p["bf16_loss_rel_err"] > TRAIN_PARITY["bf16_loss_rel"]):
+        if steps_differ(p) or p["bf16_loss_rel_err"] > TRAIN_PARITY["bf16_loss_rel"]:
             return fail(f"{model_name} training steps: cuda and cpu differ: {p}")
 
     def loss_drop(losses):
@@ -740,22 +868,208 @@ def main() -> int:
                     f"{loss_drop(det_run['losses']):.3f} (bar "
                     f"{DET_LOSS_DROP_MAX}), checkpoint logits off by {ckpt_err}")
 
+    # ------------------------------------------------- 10. data mesh (dp)
+    # a 2-shard data mesh of the one card: shard i on a stream of its own
+    from synapta_tpu_torch.ops.features import device_analyze
+    from synapta_tpu_torch.parallel.launch import run_ranks
+    from synapta_tpu_torch.parallel.mesh import data_mesh
+
+    mesh2 = data_mesh(2, "cuda", virtual=True)
+    if mesh2.shape != {"data": 2} or len(set(mesh2.streams)) != 2:
+        return fail(f"virtual data mesh: {mesh2}")
+    torch.cuda.synchronize()
+
+    def on_shards(fn, halves):
+        """fn(half i) enqueued on shard i's stream, both before any wait ->
+        the results (read only after a device-wide synchronise)."""
+        out = []
+        for i, h in enumerate(halves):
+            with mesh2.stream(i):
+                out.append(fn(h))
+        torch.cuda.synchronize()
+        return out
+
+    dp_rows, dp_cc_ms, dp_cc_plain_ms = [], 0.0, 0.0
+    for site, (mask, iters, conn) in main_masks.items():
+        halves = [h.contiguous() for h in mask.chunk(2)]
+        got = on_shards(lambda h: connected_components_cuda(
+            h, iters, conn, return_rounds=True), halves)
+        for h, (labels, k_rounds) in zip(halves, got):
+            want, p_rounds = connected_components_reference(
+                h, iters, conn, return_rounds=True)
+            if (not torch.equal(labels, want)
+                    or k_rounds.cpu().tolist() != p_rounds.tolist()):
+                return fail(f"cc kernel != twin on a side stream at {site}")
+        ms = forked_ms(mesh2, [lambda h=h: connected_components_cuda(
+            h, iters, conn) for h in halves])
+        dp_cc_ms += ms
+        dp_cc_plain_ms += cuda_ms(lambda: [connected_components_reference(
+            h, iters, conn) for h in halves])
+        dp_rows.append({"site": site, "shape": list(halves[0].shape),
+                        "ms_both_shards": ms})
+    gray_halves = [h.contiguous() for h in gray.chunk(2)]
+    got = on_shards(fused_edge_stats_cuda, gray_halves)
+    for h, g in zip(gray_halves, got):
+        if not torch.equal(g, fused_edge_stats_reference(h)):
+            return fail("edge-stats kernel != twin on a side stream")
+    dp_edge_ms = forked_ms(mesh2, [lambda h=h: fused_edge_stats_cuda(h)
+                                   for h in gray_halves])
+    dp_edge_plain_ms = cuda_ms(lambda: [fused_edge_stats_reference(h)
+                                        for h in gray_halves])
+    torch.cuda.synchronize()
+    emit("dp_kernels", exact=True, shards=2, cc_sites=dp_rows,
+         cc_ms_per_chunk=dp_cc_ms, cc_plain_ms_per_chunk=dp_cc_plain_ms,
+         cc_unsharded_ms_per_chunk=cc_ms,
+         edge_shape=list(gray_halves[0].shape), edge_ms=dp_edge_ms,
+         edge_plain_ms=dp_edge_plain_ms, edge_unsharded_ms=edge_ms, **CARD)
+
+    def analyze_wall(mesh):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        packed = device_analyze_dispatch(canvases, sizes=sizes, device=dev,
+                                         mesh=mesh).cpu()
+        return packed, (time.perf_counter() - t) * 1e3
+
+    for m in (None, mesh2):  # warm both routes
+        analyze_wall(m)
+    whole, whole_ms = analyze_wall(None)
+    parts, parts_ms = analyze_wall(mesh2)
+    f2, b2 = device_analyze(canvases, sizes=sizes, device=dev, mesh=mesh2)
+    f1, b1 = unpack_analysis(whole.numpy(), canvases.shape[0])
+    same = (torch.equal(parts, whole) and np.array_equal(b1, b2)
+            and all(np.array_equal(f1[k], f2[k]) for k in f1))
+    emit("dp_analyze", chunk=list(canvases.shape), shards=2,
+         equals_unsharded=same, packed_shape=list(whole.shape),
+         differing=int((parts != whole).sum()),
+         wall_ms_unsharded=whole_ms, wall_ms_2_shards=parts_ms, **CARD)
+    if not same:
+        return fail("device_analyze on 2 shards != the unsharded pass")
+
+    def payload(out):
+        with open(os.path.join(out, "smoke_visual_segments.json")) as f:
+            p = json.load(f)
+        for seg in p["segments"]:
+            seg["image_path"] = os.path.basename(seg["image_path"])
+        return p["segments"]
+
+    # the main path on the 2-shard mesh: counters start at 0 here and are
+    # read right after
+    connected_components_cuda.launches = 0
+    fused_edge_stats_cuda.launches = 0
+    out64dp = os.path.join(tmp, "o64dp")
+    dp_pipe, dp_segs, dp_wall = run(book64, out64dp, "cuda", mesh=mesh2)
+    dp_launches = {"cc": connected_components_cuda.launches,
+                   "edge_stats": fused_edge_stats_cuda.launches}
+    seg1, seg2 = payload(out64), payload(out64dp)
+    differing = [a["segment_id"] for a, b in zip(seg1, seg2) if a != b]
+    emit("dp_pipeline", pages=dp_pipe.stats.pages, segments=len(dp_segs),
+         errors=dp_pipe.stats.errors, mesh=dp_pipe.mesh.shape,
+         ocr_mesh=dp_pipe.ocr.mesh.shape, launches=dp_launches,
+         launches_mesh_of_1=launches,
+         segments_equal_mesh_of_1=seg1 == seg2, differing_segments=differing[:8],
+         wall_s=dp_wall, pages_per_s=dp_pipe.stats.pages / dp_wall,
+         pages_per_s_mesh_of_1=book64_pages_per_s, **CARD)
+    if dp_pipe.stats.errors or not dp_segs or seg1 != seg2:
+        return fail("64-page book on 2 shards: errors, or other segments than "
+                    "on the mesh of one")
+    if dp_launches != {k: 2 * v for k, v in launches.items()}:
+        return fail(f"2-shard launches {dp_launches} are not twice {launches}")
+
+    # ----------------------------------------------- 11. rank meshes (dist)
+    # the dp x tp step at full width in spawned ranks against the steps of
+    # one process (rec_single: make_train_step, same parameters and batches)
+    p0 = {k: v.double() for k, v in R.params_from_flax(rec_tree).items()}
+
+    def ranks_parity(world, backend, model_axis):
+        runs = run_ranks(dist_steps, world, backend, model_axis, rec_tree,
+                         rec_batches, timeout=300)
+        shape, losses, params, timings = runs[0]
+        deltas = {k: torch.from_numpy(params[k]) - p0[k] for k in rec_single[1]}
+        row = {"mesh": shape, "backend": backend, "losses": losses,
+               "losses_single": rec_single[0], **timings,
+               "step_ms_single": rec_single_step_ms,
+               **steps_parity(losses, deltas, *rec_single),
+               "ranks_equal": all(
+                   r[1] == losses and all(np.array_equal(r[2][k], params[k])
+                                          for k in params) for r in runs[1:])}
+        return row, steps_differ(row) or not row["ranks_equal"]
+
+    t = time.perf_counter()
+    ws1, bad = ranks_parity(1, "nccl", 1)
+    mesh_out = os.path.join(tmp, "train", "recognizer_mesh.msgpack")
+    mesh_run = run_ranks(dist_train, 1, 101, SEED, mesh_out, timeout=300)[0]
+    emit("dist_nccl_ws1", steps_parity=ws1, bars=TRAIN_PARITY,
+         train_use_mesh={"steps": mesh_run["steps"],
+                         "steps_per_s": mesh_run["steps"] / mesh_run["wall_s"],
+                         "first_losses": mesh_run["losses"][:3],
+                         "last_losses": mesh_run["losses"][-3:],
+                         "loss_drop": loss_drop(mesh_run["losses"]),
+                         "no_mesh_first_losses": rec_run["losses"][:3],
+                         "cer": mesh_run["cer"],
+                         "checkpoint": os.path.exists(mesh_out)},
+         wall_s=time.perf_counter() - t, **CARD)
+    if bad:
+        return fail(f"one NCCL rank's dp x tp steps differ from make_train_step: {ws1}")
+    # the same seed draws the same lines, and the schedules agree over the
+    # warmup: the first losses equal the single-process trainer's
+    if (mesh_run["group_left"] or not os.path.exists(mesh_out)
+            or not all(math.isfinite(v) for v in mesh_run["losses"])
+            or any(abs(a - b) > 5e-3 * abs(b) for a, b in zip(
+                mesh_run["losses"][:3], rec_run["losses"][:3]))
+            or loss_drop(mesh_run["losses"]) > 0.75):
+        return fail(f"train(use_mesh=True) on one NCCL rank: {mesh_run['losses'][:3]} "
+                    f"... {mesh_run['losses'][-3:]}")
+
+    t = time.perf_counter()
+    two = {}
+    for label, model_axis in (("dp2", 1), ("tp2", 2)):
+        two[label], bad = ranks_parity(2, "gloo", model_axis)
+        if bad:
+            emit("dist_two_ranks", **two, bars=TRAIN_PARITY, **CARD)
+            return fail(f"two gloo ranks ({label}) differ from one process")
+    emit("dist_two_ranks", **two, bars=TRAIN_PARITY,
+         wall_s=time.perf_counter() - t, **CARD)
+
+    # ------------------------------------------------ 12. dry run and entry
+    from synapta_tpu_torch import graft_entry
+
+    t = time.perf_counter()
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        graft_entry.dryrun_multichip(2, "cuda")  # raises unless it exits 0
+    ok_lines = [ln for ln in captured.getvalue().splitlines()
+                if ln.startswith("dryrun_multichip OK:")]
+    emit("dryrun", shards=2, ranks=2, line=ok_lines[-1] if ok_lines else None,
+         wall_s=time.perf_counter() - t, **CARD)
+    if (len(ok_lines) != 1 or "pipeline mesh={'data': 2}" not in ok_lines[0]
+            or "(1dev==2dev)" not in ok_lines[0]):
+        return fail(f"dry run printed {captured.getvalue()[-500:]!r}")
+
+    forward, (entry_model, entry_imgs) = graft_entry.entry("cuda")
+    logits = forward(entry_model, entry_imgs)
+    entry_ms = cuda_ms(lambda: forward(entry_model, entry_imgs))
+    emit("entry", input=list(entry_imgs.shape), logits=list(logits.shape),
+         dtype=str(logits.dtype), finite=bool(torch.isfinite(logits).all()),
+         ms=entry_ms, **CARD)
+    if (tuple(logits.shape) != (8, 96, 161) or not logits.is_cuda
+            or not bool(torch.isfinite(logits).all())):
+        return fail(f"entry(): logits {tuple(logits.shape)} on {logits.device}")
+
     if "--profile" in sys.argv[1:]:
         # optional: the 64-page book, the 16-page scanned book, one DB chunk
         # (model, then post stage) and one step of each trainer once more
         # under torch.profiler, for the device-busy share and device time by
         # kernel (not the timed runs)
-        from torch.profiler import ProfilerActivity, profile
+        from synapta_tpu_torch.utils.profiler import torch_trace
 
         def profiled(label, fn):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            trace_dir = os.path.join(out_dir, f"trace_{label}")
+            with torch_trace(trace_dir) as prof:
                 t = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t
-            path = os.path.join(out_dir, f"chip_smoke_trace_{label}.json")
-            prof.export_chrome_trace(path)
+            path, = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
             # device time from the trace's kernel and copy events: the
             # operator rows of key_averages() repeat their kernels' time
             by_name = {}
@@ -780,6 +1094,8 @@ def main() -> int:
                       for us, k, n in rows[:15]], **CARD)
 
         profiled("64page", lambda: run(book64, os.path.join(tmp, "prof64"), "cuda"))
+        profiled("64page_dp2", lambda: run(book64, os.path.join(tmp, "prof64dp"),
+                                           "cuda", mesh=mesh2))
         profiled("scanned16", lambda: run(scan16, os.path.join(tmp, "prof_s16"),
                                           "cuda"))
         profiled("db_model", lambda: D.db_logits(det.model, db_gray))
@@ -803,31 +1119,40 @@ def main() -> int:
             det_run["model"].train(), D.make_det_train_step,
             lambda r: D.make_det_batch(r, batch=8)))
 
-    # launches: the 64-page book's and the 16-page scanned book's runs; ms,
-    # plain_ms and bound_ms per analyze chunk (the CC row's four analyze
-    # sites; the DB site per DB chunk under "db_site")
+    # launches: the 64-page book's, the 16-page scanned book's and the
+    # 2-shard 64-page book's runs; ms, plain_ms and bound_ms per analyze
+    # chunk (the CC row's four analyze sites; the DB site per DB chunk under
+    # "db_site"; a chunk as two half shards on two streams under "dp2")
     print(json.dumps({"kernels": [
         {"name": "connected_components", "route": "cuda",
          "source": "synapta_tpu_torch/csrc/cc.cu",
          "replaces": "synapta_tpu/ops/pallas_cc.py:100",
-         "launches": launches["cc"] + scan_launches["cc"], "max_abs_err": cc_err,
+         "launches": launches["cc"] + scan_launches["cc"] + dp_launches["cc"],
+         "max_abs_err": cc_err,
          "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound_ms,
          "bound_by": cc_bound_by, "library_ms": None,
          "sites": len(cc_checked), "site_names": cc_checked,
          "launches_by_path": {"book64": launches["cc"],
-                              "scanned16": scan_launches["cc"]},
+                              "scanned16": scan_launches["cc"],
+                              "book64_dp2": dp_launches["cc"]},
+         "dp2": {"shape": dp_rows[0]["shape"], "ms": dp_cc_ms,
+                 "plain_ms": dp_cc_plain_ms},
          "db_site": {"ms": db_row["ms"], "plain_ms": db_row["plain_ms"],
                      "bound_ms": db_row["bound_ms"],
                      "bound_by": db_row["bound_by"]}},
         {"name": "fused_edge_stats", "route": "cuda",
          "source": "synapta_tpu_torch/csrc/edge_stats.cu",
          "replaces": "synapta_tpu/ops/pallas_kernels.py:162",
-         "launches": launches["edge_stats"] + scan_launches["edge_stats"],
+         "launches": (launches["edge_stats"] + scan_launches["edge_stats"]
+                      + dp_launches["edge_stats"]),
          "max_abs_err": edge_err,
          "ms": edge_ms, "plain_ms": edge_plain_ms, "bound_ms": edge_bound_ms,
          "bound_by": edge_bound_by, "library_ms": None,
          "launches_by_path": {"book64": launches["edge_stats"],
-                              "scanned16": scan_launches["edge_stats"]}},
+                              "scanned16": scan_launches["edge_stats"],
+                              "book64_dp2": dp_launches["edge_stats"]},
+         "dp2": {"shape": list(gray_halves[0].shape), "ms": dp_edge_ms,
+                 "plain_ms": dp_edge_plain_ms}},
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,20 @@ its module names so each counterpart is easy to find:
                      first use and loaded with ctypes (ops/_build.py)
   - ops/             image ops in plain PyTorch plus the two kernel wrappers
                      (connected components, fused edge statistics)
-  - models/          CTC recognizer as an nn.Module and a jax-free reader for
-                     the flax msgpack weight files
+  - models/          the CTC recognizer and the DB line detector as
+                     nn.Modules, their trainers, and a jax-free reader and
+                     writer for the flax msgpack weight files
   - ocr/             fused text-line boxes and the batched OCR driver
   - vision/          classification heuristics over the feature batch
+  - parallel/        multi-device execution: the data mesh of the pipeline
+                     (one process, a stream per shard), the ("data", "model")
+                     rank mesh and the dp x tp training step
+                     (torch.distributed), and the multi-device dry run
   - pipeline.py      the streaming orchestrator (public entry point)
   - cli.py           ``python -m synapta_tpu_torch.cli``
+  - eval.py, serve.py  quality evaluation and the multi-book queue
+  - graft_entry.py   ``entry()`` (the recognizer's forward step) and
+                     ``dryrun_multichip()``
 
   - config.py, schema.py, io/, utils/, llm/, linker/, models/charset.py,
     vision/{detect,captions}.py, ocr/heuristics.py

@@ -53,8 +53,26 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """A Linear with its parameters cast to x's dtype, as flax's Dense casts
-    them to its compute dtype."""
+    them to its compute dtype. A layer whose kernel is cut over the 'model'
+    axis (``model_axis``, set by parallel/mesh.py::shard_params) computes its
+    rank's output columns, gathers all ranks' and then adds the whole bias."""
+    axis = getattr(lin, "model_axis", None)
+    if axis is not None:
+        return axis.column(lambda h: F.linear(h, lin.weight.to(h.dtype)),
+                           x, -1) + lin.bias.to(x.dtype)
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A padding-free conv with its parameters cast to x's dtype; cut over
+    the 'model' axis as ``_dense`` is (output channels gathered)."""
+    axis = getattr(conv, "model_axis", None)
+    if axis is not None:
+        return axis.column(
+            lambda h: F.conv2d(h, conv.weight.to(h.dtype), None, conv.stride),
+            x, 1) + conv.bias.to(x.dtype).view(1, -1, 1, 1)
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
+                    conv.stride)
 
 
 # The standard deviation of a unit normal truncated to [-2, 2]: flax's
@@ -151,14 +169,13 @@ class Recognizer(nn.Module):
         for conv, (sh, sw) in zip(self.convs, self.strides):
             ph = _same_pad(x.shape[2], sh)
             pw = _same_pad(x.shape[3], sw)
-            x = F.relu(F.conv2d(F.pad(x, (*pw, *ph)), conv.weight.to(x.dtype),
-                                conv.bias.to(x.dtype), conv.stride))
+            x = F.relu(_conv(conv, F.pad(x, (*pw, *ph))))
         x = x.mean(dim=2).transpose(1, 2)  # collapse height -> (B, T, dim)
         x = x + self.pos_embed.to(self.dtype)
         for blk in self.blocks:
             x = blk(x)
         x = _layer_norm(self.norm, x)
-        return self.head(x.to(torch.float32))
+        return _dense(self.head, x.to(torch.float32))
 
 
 def params_from_flax(tree) -> Dict[str, torch.Tensor]:
@@ -251,6 +268,23 @@ def params_to_flax(sd, heads: int = 4) -> Dict:
     tree["Dense_0"] = {"kernel": np.ascontiguousarray(a("head.weight").T),
                        "bias": a("head.bias")}
     return tree
+
+
+def kernel_modules(model: Recognizer) -> Dict[tuple, nn.Module]:
+    """flax path of every conv and Dense kernel -> the torch layer that
+    holds it (``weight`` (out, ...): dim 0 is flax's last dim)."""
+    out: Dict[tuple, nn.Module] = {}
+    for i, conv in enumerate(model.convs):
+        out[(f"Conv_{i}", "kernel")] = conv
+    for j, blk in enumerate(model.blocks):
+        pre = f"EncoderBlock_{j}"
+        for name in ("query", "key", "value", "out"):
+            out[(pre, "MultiHeadDotProductAttention_0", name, "kernel")] = (
+                getattr(blk, name))
+        out[(pre, "Dense_0", "kernel")] = blk.fc0
+        out[(pre, "Dense_1", "kernel")] = blk.fc1
+    out[("Dense_0", "kernel")] = model.head
+    return out
 
 
 def init_params(model: Recognizer, generator: torch.Generator) -> Recognizer:

@@ -1,5 +1,5 @@
 """Recognizer training: CTC on synthetic text lines — counterpart of
-synapta_tpu/models/train.py, on one device.
+synapta_tpu/models/train.py.
 
 Run:  python -m synapta_tpu_torch.models.train --device cuda --steps 1500
 
@@ -13,8 +13,15 @@ averaged per sequence as optax's is; the optimiser is ``optim.adamw`` over a
 host reads it back only every ``log_every`` steps. Checkpoints are flax
 msgpack files (float32, flax's layout) that the JAX package's
 ``load_params`` reads; they go under ``synapta_tpu_torch/_build/weights/``
-unless ``--out`` names another path. The JAX package's ``--mesh`` (data
-parallelism over a device mesh) is not ported.
+unless ``--out`` names another path.
+
+``--mesh`` is data parallelism over a rank mesh, one process per device:
+start the same command once per device with SYNAPTA_COORDINATOR
+("host:port"), SYNAPTA_NUM_PROCESSES and SYNAPTA_PROCESS_ID set
+(parallel/mesh.py::init_distributed; NCCL on CUDA, gloo on the CPU). Every
+rank draws the same global batch from the same seed and takes its slice, the
+gradients are averaged over the ranks, and rank 0 alone logs, evaluates and
+saves. Without a coordinator ``--mesh`` is the single-process run.
 """
 from __future__ import annotations
 
@@ -85,28 +92,41 @@ def ctc_objective(model, imgs, labels, label_lens) -> torch.Tensor:
     return loss.mean()
 
 
-def make_step(model, tx, objective):
+def make_step(model, tx, objective, mesh=None):
     """Returns step(imgs, *targets) -> loss: one update of ``model``'s
     parameters by ``tx`` (``optim.adamw``) on ``objective(model, images,
     *targets)``, from a host batch (numpy; images (B, H, W, 1)). The loss
-    stays a 0-dim tensor on the model's device."""
+    stays a 0-dim tensor on the model's device.
+
+    With a rank mesh (parallel/mesh.py::make_mesh) the batch is the GLOBAL
+    one, the same on every rank: each rank takes its slice along 'data', and
+    the gradients and the loss are averaged over the ranks before the
+    update."""
     dev = model.head.weight.device
+    if mesh is not None:
+        from synapta_tpu_torch.parallel.mesh import reduce_gradients, shard_batch
 
     def step(imgs, *targets):
+        if mesh is not None:
+            imgs, *targets = shard_batch((imgs, *targets), mesh)
         x = torch.from_numpy(imgs).to(dev).permute(0, 3, 1, 2)
         t = [torch.from_numpy(a).to(dev) for a in targets]
         tx.opt.zero_grad(set_to_none=True)
         loss = objective(model, x, *t)
         loss.backward()
+        if mesh is not None:
+            loss = reduce_gradients(list(model.parameters()), loss, mesh)
         tx.step()
         return loss.detach()
 
     return step
 
 
-def make_train_step(model, tx):
-    """step(imgs, labels, label_lens) -> loss on a ``make_batch`` batch."""
-    return make_step(model, tx, ctc_objective)
+def make_train_step(model, tx, mesh=None):
+    """step(imgs, labels, label_lens) -> loss on a ``make_batch`` batch.
+    With a mesh: the batch sharded on 'data', the parameters replicated,
+    the gradients averaged over the ranks."""
+    return make_step(model, tx, ctc_objective, mesh)
 
 
 @torch.inference_mode()
@@ -227,6 +247,7 @@ def train(
     lr: float = 3e-4,
     seed: int = 0,
     out: str = WEIGHTS_OUT,
+    use_mesh: bool = False,
     log_every: int = 100,
     init_from: str | None = None,
     data: str = "pil",
@@ -240,48 +261,66 @@ def train(
     fresh lines; write the float32 parameters to ``out`` every
     ``log_every`` steps and at the end. Returns the run: the trained model,
     the CER, per-step losses, and the wall, host data, host step and device
-    step seconds."""
+    step seconds.
+
+    ``use_mesh``: data parallelism over every rank of the process group that
+    ``init_distributed`` joins from its env vars (none configured: the
+    single-process run). ``batch`` stays the global batch; rank 0 alone
+    logs, evaluates (``cer`` is None elsewhere) and saves."""
+    import torch.distributed as dist
+
     from synapta_tpu_torch.hostlibs import ensure_synthdata_fonts
     from synapta_tpu_torch.models.optim import adamw, warmup_cosine_decay_schedule
+    from synapta_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
     dev = resolve_device(device)
-    ensure_synthdata_fonts()
-    gen = torch.Generator().manual_seed(seed)
-    if init_from:
-        # template-free restore: the checkpoint may predate a charset
-        # extension, so its head is narrower than the current model's —
-        # pad_params copies it into a fresh init (append-only class ids)
-        with open(init_from, "rb") as f:
-            raw = msgpack_restore(f.read())
-        params = pad_params(raw, init_params(gen))
-    else:
-        params = init_params(gen)
-    model = create_model(compute_dtype(dev))
-    model.load_state_dict(params_from_flax(params))
-    model.to(dev).train()
-    tx = adamw(model.parameters(),
-               warmup_cosine_decay_schedule(0.0, lr, 100, steps), 0.9, 0.98)
-    step_fn = make_train_step(model, tx)
-    if data == "mixed":
-        from synapta_tpu_torch.models.synthdata import make_batch_mixed
+    joined = use_mesh and init_distributed(device=dev)
+    try:
+        mesh = make_mesh(device=dev) if joined else None
+        rank0 = mesh is None or mesh.get_rank() == 0
+        ensure_synthdata_fonts()
+        gen = torch.Generator().manual_seed(seed)
+        if init_from:
+            # template-free restore: the checkpoint may predate a charset
+            # extension, so its head is narrower than the current model's —
+            # pad_params copies it into a fresh init (append-only class ids)
+            with open(init_from, "rb") as f:
+                raw = msgpack_restore(f.read())
+            params = pad_params(raw, init_params(gen))
+        else:
+            params = init_params(gen)
+        model = create_model(compute_dtype(dev))
+        model.load_state_dict(params_from_flax(params))
+        model.to(dev).train()
+        tx = adamw(model.parameters(),
+                   warmup_cosine_decay_schedule(0.0, lr, 100, steps), 0.9, 0.98)
+        step_fn = make_train_step(model, tx, mesh)
+        if data == "mixed":
+            from synapta_tpu_torch.models.synthdata import make_batch_mixed
 
-        def batches(r):
-            return make_batch_mixed(r, batch=batch, shot_frac=shot_frac)
-    else:
-        def batches(r):
-            return make_batch(r, batch=batch, shot_frac=shot_frac)
+            def batches(r):
+                return make_batch_mixed(r, batch=batch, shot_frac=shot_frac)
+        else:
+            def batches(r):
+                return make_batch(r, batch=batch, shot_frac=shot_frac)
 
-    def save():
-        save_params(params_to_flax(model.state_dict()), out)
+        def save():
+            save_params(params_to_flax(model.state_dict()), out)
 
-    run = run_steps(step_fn, batches, np.random.default_rng(seed), steps,
-                    log_every, dev, save)
-    run["model"] = model.eval()
-    run["cer"] = evaluate(model, np.random.default_rng(seed + 1))
-    print(f"eval CER: {run['cer']:.4f}")
-    save()
-    print(f"saved -> {out}")
-    return run
+        # a rank other than 0 never reaches a log step: no print, no save
+        run = run_steps(step_fn, batches, np.random.default_rng(seed), steps,
+                        log_every if rank0 else steps + 1, dev, save)
+        run["model"] = model.eval()
+        run["cer"] = None
+        if rank0:
+            run["cer"] = evaluate(model, np.random.default_rng(seed + 1))
+            print(f"eval CER: {run['cer']:.4f}")
+            save()
+            print(f"saved -> {out}")
+        return run
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
@@ -291,6 +330,10 @@ if __name__ == "__main__":
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=WEIGHTS_OUT)
+    ap.add_argument("--mesh", action="store_true",
+                    help="data parallelism over the ranks named by "
+                         "SYNAPTA_COORDINATOR, SYNAPTA_NUM_PROCESSES and "
+                         "SYNAPTA_PROCESS_ID (one process per device)")
     ap.add_argument("--init-from", default=None)
     ap.add_argument("--data", default="pil", choices=["pil", "mixed"])
     ap.add_argument("--shot-frac", type=float, default=0.16)
@@ -304,6 +347,6 @@ if __name__ == "__main__":
 
         ensure_native_engine(["-m", "synapta_tpu_torch.models.train",
                               *sys.argv[1:]])
-    train(args.steps, args.batch, args.lr, args.seed, args.out,
+    train(args.steps, args.batch, args.lr, args.seed, args.out, args.mesh,
           init_from=args.init_from, data=args.data, shot_frac=args.shot_frac,
           device=args.device)

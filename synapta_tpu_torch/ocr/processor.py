@@ -4,9 +4,12 @@ The device half is ported: the recognizer runs as a PyTorch module on the
 driver's device (``_decode``, ``recognize_dispatch``, ``recognize_sync``).
 The host half (tile cutting, line splitting, confidence gate, result
 assembly) is a verbatim copy of ``TPUOCR``'s methods; a test pins each copy
-to its original. The DB line detector (models/detector.py) runs on the same
-device, bound eagerly for ``line_detector="db"`` and lazily for scanned-like
-crops under ``"auto"``.
+to its original. With a data mesh (parallel/mesh.py) of more than one shard
+every fixed-shape tile batch is cut over the mesh's devices, one recognizer
+replica a device. The DB line detector (models/detector.py) runs on the same
+device (a mesh's first: it is not sharded, as in the JAX package), bound
+eagerly for ``line_detector="db"`` and lazily for scanned-like crops under
+``"auto"``.
 """
 from __future__ import annotations
 
@@ -24,24 +27,35 @@ from synapta_tpu_torch.ocr.linedet import detect_lines
 from synapta_tpu_torch.schema import OCRResult
 
 class TorchOCR:
-    """Loads recognizer weights once; recognizes line batches on ``device``."""
+    """Loads recognizer weights once; recognizes line batches on ``device``,
+    or on the devices of ``mesh`` (then ``device`` is the mesh's first)."""
 
     def __init__(self, cfg: OCRConfig = OCRConfig(),
-                 weights_path: Optional[str] = None, device="cuda"):
+                 weights_path: Optional[str] = None, device="cuda", mesh=None):
         from synapta_tpu_torch.models.msgpack_io import WEIGHTS_PATH, load_params
         from synapta_tpu_torch.models.recognizer import recognizer_from_flax
 
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = resolve_device(device if mesh is None else mesh.devices[0])
         path = weights_path or WEIGHTS_PATH
         if not os.path.exists(path):
             raise FileNotFoundError(
-                f"recognizer weights missing at {path} — run "
-                "`python -m synapta_tpu.models.train`"
+                f"recognizer weights missing at {path} — train them with "
+                f"`python -m synapta_tpu_torch.models.train --out {path}`"
             )
+        params = load_params(path)
         self.model = recognizer_from_flax(
-            load_params(path), dtype=torch.bfloat16, device=self.device
+            params, dtype=torch.bfloat16, device=self.device
         )
+        # DP over text-line batches: the weights live once on every device
+        # of the mesh, tiles are cut across its shards (line_batch must
+        # divide evenly — recognize_dispatch pads every chunk to it)
+        self._replicas = {}
+        if self.mesh is not None:
+            for dev in set(self.mesh.devices) - {self.mesh.devices[0]}:
+                self._replicas[dev] = recognizer_from_flax(
+                    params, dtype=torch.bfloat16, device=dev)
         # line detection backend: "heuristic" (ink morphology, exact on
         # clean renders), "db" (trainable DB-style model,
         # models/detector.py — the PaddleOCR-DBNet parity path for
@@ -57,7 +71,7 @@ class TorchOCR:
         """(B, 32, W) uint8 tiles on the device -> (B, W//4, 2) float32
         [argmax class, max softmax] (normalised to [0, 1] on the device)."""
         x = x.to(torch.float32)[:, None] / 255.0
-        logits = self.model(x)
+        logits = self._replicas.get(x.device, self.model)(x)
         best = torch.argmax(logits, dim=-1)
         conf = torch.softmax(logits, dim=-1).amax(dim=-1)
         return torch.stack([best.to(torch.float32), conf], dim=-1)
@@ -162,10 +176,14 @@ class TorchOCR:
                 chunk = np.concatenate(
                     [chunk, np.full((pad_n,) + chunk.shape[1:], 255, np.uint8)]
                 )
-            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
-                self.device, non_blocking=True
-            )
-            pending.append((self._decode(x), chunk.shape[0], pad_n))
+            if self.mesh is not None:
+                packed = self.mesh.dispatch(self._decode, chunk)
+            else:
+                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                    self.device, non_blocking=True
+                )
+                packed = self._decode(x)
+            pending.append((packed, chunk.shape[0], pad_n))
         return pending
 
     @staticmethod

@@ -224,7 +224,13 @@ def _core_features(gray_u8: torch.Tensor, rgb_q: torch.Tensor,
     ahist.scatter_add_(1, abin.reshape(B, -1), on_ring.reshape(B, -1))
     ring_coverage = (ahist > 0).to(torch.float32).mean(dim=1)
 
-    variance = gray.var(dim=(1, 2), unbiased=False)  # jnp.var: population
+    # jnp.var (population), from exact integer sums of the uint8 luma: a
+    # float reduction's order follows the batch size on the GPU, and a crop's
+    # features must not depend on the chunk it is analysed in
+    g64 = gray_u8.to(torch.int64)
+    s1 = g64.sum(dim=(1, 2)).to(torch.float64)
+    s2 = (g64 * g64).sum(dim=(1, 2)).to(torch.float64)
+    variance = ((s2 - s1 * s1 / (H * W)) / (H * W)).to(torch.float32)
 
     v_ink = morph_open(ink, 2 * line_kernel - 1, 1)
     v_ink_pixels = box_count(v_ink > 0)
@@ -272,27 +278,43 @@ def analyze(gray_u8: torch.Tensor, rgb_q: torch.Tensor,
     return torch.cat([packed, boxes.reshape(packed.shape[0], -1)], dim=1)
 
 
-def device_analyze_dispatch(rgb, sizes=None, device="cuda"):
+def device_analyze(rgb, sizes=None, device="cuda", mesh=None):
+    """Crop batch -> (features dict of host numpy arrays, (B, 128, 5) line
+    boxes). The fused single-dispatch path used by the pipeline. With a
+    mesh, the batch dim shards across its 'data' axis."""
+    packed = device_analyze_dispatch(rgb, sizes=sizes, device=device, mesh=mesh)
+    return unpack_analysis(packed.cpu().numpy(), rgb.shape[0])
+
+
+def device_analyze_dispatch(rgb, sizes=None, device="cuda", mesh=None):
     """Convert a HOST (B, H, W, 3) uint8 crop chunk to (gray u8, eighth-res
     RGB), move both to ``device`` and enqueue ``analyze``. Returns the
     packed tensor on the device without waiting for it; unpack on the host
-    with ``unpack_analysis(packed.cpu().numpy(), B)``."""
+    with ``unpack_analysis(packed.cpu().numpy(), B)``.
+
+    With a data mesh (parallel/mesh.py::data_mesh) of more than one shard
+    the chunk is cut evenly along the batch and every shard is enqueued on
+    its own device and stream; the result's ``cpu()`` puts the shards back
+    in order. The analysis is per crop, so the shards equal the whole. A
+    mesh of one is the unsharded pass on that mesh's device."""
     import numpy as np
 
     from synapta_tpu_torch.ops.color import gray_quarter_host
 
-    device = torch.device(device)
     B, H, W = rgb.shape[:3]
     if sizes is None:
         sizes = np.tile(np.array([H, W], np.int32), (B, 1))
+    sizes = np.asarray(sizes, np.int32)
     gray, rgb_q = gray_quarter_host(np.asarray(rgb))
     rgb_q = rgb_q[:, ::2, ::2]
+    if mesh is not None and mesh.size > 1:
+        return mesh.dispatch(analyze, gray, rgb_q, sizes)
+    device = torch.device(device) if mesh is None else mesh.devices[0]
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    return analyze(to_dev(gray), to_dev(rgb_q),
-                   to_dev(np.asarray(sizes, np.int32)))
+    return analyze(to_dev(gray), to_dev(rgb_q), to_dev(sizes))
 
 
 def unpack_analysis(packed, B: int):

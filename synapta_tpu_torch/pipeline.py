@@ -11,7 +11,9 @@ Counterpart of synapta_tpu/pipeline.py with the same stage queue:
   _enrich_finish(...)   sync recognition, gate, classify, enrich, write
 
 with A = cfg.analyze_depth and R = cfg.recognize_depth. The device is named
-explicitly (``device="cuda"`` raises without CUDA); there is no mesh. The
+explicitly (``device="cuda"`` raises without CUDA). Crop and line batches
+are cut over a data mesh (parallel/mesh.py) of every GPU there is, or of
+``cfg.data_devices``; on one GPU that is a mesh of one, the unsharded pass. The
 enrichment, LLM patching and page-context methods are verbatim copies of the
 JAX pipeline's host code (a test pins each one), and so is ``_ocr_dispatch``:
 scanned-like crops (full-page embedded rasters) go through the DB line
@@ -86,6 +88,7 @@ class VisualSegmentationPipeline:
             self.linker = ConceptLinker(read_taxonomy(taxonomy_path), self.cfg.linker)
         self.segments: List[VisualSegment] = []
         self.stats = PipelineStats()
+        self.mesh = None  # data mesh, built in process()
         # late-LLM patching: writer/stats guards + in-flight future tracking
         self._writer_lock = threading.Lock()
         from concurrent.futures import ThreadPoolExecutor as _TPE
@@ -132,8 +135,20 @@ class VisualSegmentationPipeline:
                                        self.cfg.pdf_password)
         self.engine = DetectionEngine(self.doc, self.cfg.detection,
                                       pixels_doc=self.render_doc)
+        if self.mesh is None:
+            import math
+
+            from synapta_tpu_torch.parallel.mesh import data_mesh_auto
+
+            # DP over crop/line batches across every available GPU;
+            # fixed-shape chunks must split evenly, so the mesh size divides
+            # both chunk sizes.
+            self.mesh = data_mesh_auto(
+                math.gcd(self.cfg.ocr.crop_batch, self.cfg.ocr.line_batch),
+                self.cfg.data_devices, self.device,
+            )
         if self.ocr is None:
-            self.ocr = TorchOCR(self.cfg.ocr, device=self.device)
+            self.ocr = TorchOCR(self.cfg.ocr, device=self.device, mesh=self.mesh)
         n_pages = self.doc.page_count
         log.info("processing %s: %d pages", self.cfg.pdf_path, n_pages)
         try:
@@ -432,7 +447,7 @@ class VisualSegmentationPipeline:
             with TIMERS.stage("features_dispatch"):
                 packed = device_analyze_dispatch(
                     chunk, sizes=np.array(chunk_sizes, np.int32),
-                    device=self.device,
+                    device=self.device, mesh=self.mesh,
                 )
             pending.append((chunk, real, chunk_sizes, packed, start))
         return pending

@@ -1,10 +1,12 @@
 """Tracing/profiling hooks (SURVEY.md §5: the reference had none).
 
-Stage timers aggregate wall time per pipeline stage.
+Stage timers aggregate wall time per pipeline stage; ``torch_trace`` wraps a
+block in the PyTorch profiler for TensorBoard-viewable device traces.
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator
@@ -36,3 +38,21 @@ class StageTimers:
 
 
 TIMERS = StageTimers()
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str | None = None) -> Iterator:
+    """Device-level profiler trace (view with TensorBoard or Perfetto):
+    CPU activities and, where there is a GPU, CUDA ones, written to
+    ``log_dir`` as ``<host>_<pid>.<time>.pt.trace.json`` when the block
+    ends. Yields the ``torch.profiler.profile`` object."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    log_dir = log_dir or os.environ.get("SYNAPTA_TRACE_DIR", "/tmp/synapta_trace")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof

@@ -9,7 +9,10 @@ also runs on a GPU machine without JAX, bypassing the suite's conftest:
 Inputs are seeded numpy arrays and crops drawn with Pillow; results must
 be bit-identical, and the CC kernel's rounds must equal the twin's. The two
 trainers' steps (no kernel of their own: cuDNN, cuBLAS and torch's CTC) are
-held to their CPU runs within the tolerances each test states.
+held to their CPU runs within the tolerances each test states. The data
+mesh's shards (further streams of the one GPU) must give the bits of the
+unsharded pass, and two ranks that share the GPU (gloo) the single-process
+training steps within the bounds of tests/test_torch_parallel.py.
 """
 import numpy as np
 import pytest
@@ -241,3 +244,130 @@ def test_detector_train_step_cuda_equals_cpu():
 
     _step_cuda_vs_cpu(make_model, D.make_det_train_step,
                       (imgs, prob_t, prob_t, 0.3 * prob_t))
+
+
+@pytest.mark.cuda
+def test_data_mesh_on_the_gpus_there_are():
+    """More shards than GPUs only when asked for by name (virtual): then
+    every shard has a stream of its own."""
+    _need_cuda()
+    from synapta_tpu_torch.parallel.mesh import data_mesh, data_mesh_auto
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"requested {n + 1} devices, have {n}"):
+        data_mesh(n + 1, "cuda")
+    mesh = data_mesh(2 * n, "cuda", virtual=True)
+    assert mesh.shape == {"data": 2 * n}
+    assert len({s.cuda_stream for s in mesh.streams}) == 2 * n
+    assert [d.index for d in mesh.devices] == [i % n for i in range(2 * n)]
+    auto = data_mesh_auto(16, None, "cuda")
+    assert auto.size == max(d for d in range(1, n + 1) if 16 % d == 0)
+    if auto.size == 1:
+        assert auto.streams == (None,)
+
+
+@pytest.mark.cuda
+def test_kernels_on_shard_streams_equal_twins():
+    """Both kernels at the shard shapes of a 2-shard mesh, (8, 256, 256) and
+    (8, 512, 512), each shard enqueued on its own stream before any wait."""
+    _need_cuda()
+    from synapta_tpu_torch.ops.cc import connected_components_reference
+    from synapta_tpu_torch.ops.cuda_cc import connected_components_cuda
+    from synapta_tpu_torch.ops.cuda_kernels import (
+        fused_edge_stats_cuda,
+        fused_edge_stats_reference,
+    )
+    from synapta_tpu_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh(2, "cuda", virtual=True)
+    masks = torch.from_numpy(np.ascontiguousarray(
+        _drawn(16, 256) / 255.0 < 0.5, np.float32)).cuda()
+    grays = torch.from_numpy(_grays()[0]).cuda()
+    torch.cuda.synchronize()
+    cc, es = [], []
+    for i in range(2):
+        with mesh.stream(i):
+            cc.append(connected_components_cuda(
+                masks[8 * i:8 * i + 8].contiguous(), 6, 8, return_rounds=True))
+            es.append(fused_edge_stats_cuda(grays[8 * i:8 * i + 8].contiguous()))
+    torch.cuda.synchronize()
+    for i in range(2):
+        want, rounds = connected_components_reference(
+            masks[8 * i:8 * i + 8], 6, 8, return_rounds=True)
+        assert torch.equal(cc[i][0], want)
+        assert cc[i][1].cpu().tolist() == rounds.tolist()
+        assert torch.equal(es[i],
+                           fused_edge_stats_reference(grays[8 * i:8 * i + 8]))
+
+
+@pytest.mark.cuda
+def test_device_analyze_two_shards_equals_unsharded():
+    """A 16-crop chunk of drawn 512² canvases through the analyze pass on a
+    2-shard mesh of the GPU: the packed tensor of the unsharded pass, bit
+    for bit, and twice its kernel launches."""
+    _need_cuda()
+    from synapta_tpu_torch.ops import features as F
+    from synapta_tpu_torch.ops.cuda_cc import connected_components_cuda
+    from synapta_tpu_torch.ops.cuda_kernels import fused_edge_stats_cuda
+    from synapta_tpu_torch.parallel.mesh import Sharded, data_mesh
+
+    canvases = np.repeat(_drawn(16, 512).astype(np.uint8)[..., None], 3, axis=-1)
+    sizes = np.full((16, 2), 512, np.int32)
+    whole = F.device_analyze_dispatch(canvases, sizes=sizes, device="cuda").cpu()
+    n_cc, n_es = connected_components_cuda.launches, fused_edge_stats_cuda.launches
+    parts = F.device_analyze_dispatch(canvases, sizes=sizes,
+                                      mesh=data_mesh(2, "cuda", virtual=True))
+    assert isinstance(parts, Sharded)
+    assert [tuple(p.shape) for p in parts.parts] == [(8, whole.shape[1])] * 2
+    assert torch.equal(parts.cpu(), whole)
+    assert connected_components_cuda.launches == n_cc + 8
+    assert fused_edge_stats_cuda.launches == n_es + 2
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_gpu_match_single_process():
+    """tp 2 on two spawned ranks that share the GPU (gloo; NCCL takes one
+    rank a GPU): forward and two float32 dp x tp steps of a small recognizer
+    against this process's own steps on the GPU."""
+    _need_cuda()
+    import torch_distworker as W
+    from synapta_tpu_torch.device import resolve_device
+    from synapta_tpu_torch.hostlibs import ensure_synthdata_fonts
+    from synapta_tpu_torch.models import recognizer as R
+    from synapta_tpu_torch.models import train as T
+    from synapta_tpu_torch.models.synthdata import make_batch
+    from synapta_tpu_torch.parallel.launch import run_ranks
+
+    resolve_device("cuda")
+    ensure_synthdata_fonts()
+    width = 128
+    tree = R.params_to_flax(R.init_params(
+        R.Recognizer(dim=128, blocks=1, seq_len=width // 4, dtype=torch.float32),
+        torch.Generator().manual_seed(0)).state_dict())
+    batches = [make_batch(np.random.default_rng(20 + s), batch=8, width=width,
+                          max_label=16) for s in range(2)]
+    model = W.build(tree, width).cuda()
+    step = T.make_train_step(model, W.adamw(model))
+    losses = [float(step(*b)) for b in batches]
+    want = R.params_to_flax(model.state_dict())
+    runs = run_ranks(W.steps_workload, 2, 2, tree, batches, "gloo", "cuda",
+                     timeout=300)
+    lr_sum = 5e-4  # the schedule's first two values: 0 and 1e-3 / 2
+    for r in runs:
+        assert r["mesh"] == {"data": 1, "model": 2} and len(r["cut"]) == 11
+        assert r["losses"] == runs[0]["losses"]
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5)
+
+        def walk(got, ref, path=""):
+            for k, v in got.items():
+                if isinstance(v, dict):
+                    walk(v, ref[k], path + k + "/")
+                    continue
+                # Adam's first moving step is lr x sign(g): a gradient at
+                # rounding level may take the other sign, 2 lr apart
+                d = np.abs(v - ref[k])
+                assert d.max() <= 2 * lr_sum + 1e-6, path + k
+                if not (path + k).endswith("key/bias"):
+                    assert (d > 1e-6).mean() <= 1e-3, path + k
+
+        walk(r["params"], want)

@@ -13,8 +13,8 @@
   synapta_tpu`` imports name ``synapta_tpu_torch`` and for the named
   substitutions (the device arguments of collect_tiles, db_detector, the
   evaluations and the book queue; the DB detector's device dispatch; the
-  engine binary's path; the dropped ``jax_trace``; reference-project files
-  named from its root).
+  engine binary's path; ``torch_trace`` in the place of ``jax_trace``;
+  reference-project files named from its root).
 - No silent fallback: "cuda" raises without CUDA. ``line_detector="db"``
   binds the DB detector on the OCR's device.
 """
@@ -125,7 +125,9 @@ def test_import_is_jax_free():
         "synapta_tpu_torch.cli, synapta_tpu_torch.ops.features, "
         "synapta_tpu_torch.models.detector, synapta_tpu_torch.eval, "
         "synapta_tpu_torch.serve, synapta_tpu_torch.models.train, "
-        "synapta_tpu_torch.models.synthdata, synapta_tpu_torch.models.optim; "
+        "synapta_tpu_torch.models.synthdata, synapta_tpu_torch.models.optim, "
+        "synapta_tpu_torch.parallel.mesh, synapta_tpu_torch.parallel.launch, "
+        "synapta_tpu_torch.parallel.dryrun, synapta_tpu_torch.graft_entry; "
         "print(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {_BANNED!r}))"
     )
@@ -170,16 +172,16 @@ _HOST_MODULES = (
 )
 
 
-def _module_subs(name, orig):
+def _module_subs(name, orig, port):
     """Named substitutions of a whole-module copy, besides the imports."""
-    if name == "utils.profiler":  # jax_trace stays behind
+    if name == "utils.profiler":
+        # StageTimers is the copy; torch_trace (torch.profiler, the same
+        # SYNAPTA_TRACE_DIR) stands where jax_trace stood
         return [
-            ("Stage timers aggregate wall time per pipeline stage; ``jax_trace`` "
-             "wraps a\nblock in the JAX profiler for TensorBoard-viewable "
-             "device traces.\n",
-             "Stage timers aggregate wall time per pipeline stage.\n"),
-            ("import os\n", ""),
-            ("\n\n" + inspect.getsource(orig.jax_trace), ""),
+            ("``jax_trace`` wraps a\nblock in the JAX profiler",
+             "``torch_trace`` wraps a\nblock in the PyTorch profiler"),
+            (inspect.getsource(orig.jax_trace),
+             inspect.getsource(port.torch_trace)),
         ]
     if name == "io.ingest":  # the engine binary, read by path from the repo root
         return [
@@ -250,7 +252,7 @@ def _copies():
     for name in _HOST_MODULES:
         orig = importlib.import_module(f"synapta_tpu.{name}")
         port = importlib.import_module(f"synapta_tpu_torch.{name}")
-        out.append((name, port, orig, _module_subs(name, orig)))
+        out.append((name, port, orig, _module_subs(name, orig, port)))
 
     import synapta_tpu.eval as jev
     import synapta_tpu.models.detector as jdet
