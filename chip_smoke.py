@@ -7,18 +7,22 @@ Builds both CUDA kernels from synapta_tpu_torch/csrc, checks each against
 its plain PyTorch twin at the main path's shapes (the CC kernel at all five
 call sites: the four of the analyze pass and the DB line detector's, also on
 a random mask that does not settle within the cap, and its rounds against
-the twin's), times each beside its plain twin and its bound (the least time
+the twin's; the edge-stats kernel on both of its routes, the default one
+that the main path runs and the Pallas kernel's, on rendered crops and on
+integer noise), times each beside its plain twin and its bound (the least time
 the card could take: bytes over HBM rate against operations over peak
 rate), checks the recognizer and the DB detector in bf16 on the GPU against
 float32 on the CPU, then drives the port's entry points on the GPU:
 
 - VisualSegmentationPipeline(device="cuda"): a 4-page book on the GPU and on
-  the CPU (segments must match) and a 64-page book at the production chunk
-  shapes;
+  the CPU (the two segment JSON payloads must match key by key, apart from
+  the crops' directories and the bf16 recognizer's confidences within
+  ``CONF_DIFF_MAX``) and a 64-page book at the production chunk shapes;
 - the scanned-page path (full-page rasters through the DB detector under the
   default line_detector="auto"): a 4-page scanned book on the GPU and on the
   CPU (segments must match) and a 16-page one through eval.evaluate_scanned
-  (0 errors, CER <= 0.025);
+  (0 errors, CER <= 0.025); ``DBLineDetector.detect_lines`` on a drawn crop
+  that takes the native-resolution path (2 x 2 views of 512², ``db_native``);
 - serve.BookQueue(device="cuda") over a test book and a scanned book: both
   done with 0 errors, and a second run skips both;
 - training, which launches no kernel of the port's own (cuDNN, cuBLAS and
@@ -46,7 +50,8 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   (``dryrun``) and the ``graft_entry.entry()`` forward (``entry``).
 
 Kernel launch counters are set to 0 just before each of the 64-page, the
-16-page scanned and the 2-shard 64-page runs and read just after. Every
+16-page scanned and the 2-shard 64-page runs and read just after, with the
+route of every edge-stats launch (all must be the default route's). Every
 phase prints one JSON line; any failure exits nonzero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
@@ -86,6 +91,12 @@ F32_OPS_PER_S = 67e12
 DB_PROB_AGREE_MIN = 0.999
 DB_BOX_MATCH_MIN = 0.95
 SCANNED_CER_MAX = 0.025  # the JAX package's bar, tests/test_detector.py
+# The 4-page book's segment JSON on the card against the CPU's: a text
+# line's confidence (0..100) and an OCR result's mean confidence (0..1) may
+# differ by this much, the bf16 recognizer running through cuDNN and cuBLAS
+# there and through the CPU's kernels here (measured on an H100: 0.348 and
+# 4.2e-4); nothing else may but the directory of a crop's file.
+CONF_DIFF_MAX = {"block": 1.0, "mean": 2e-3}
 # Training. Three steps of each trainer in float32 on the card against the
 # CPU, from the same parameters and batches (warmup 2 of 10, peak lr 1e-3).
 # The CPU rehearsal (float32 against float64 on the CPU) gave loss errors up
@@ -114,8 +125,14 @@ def bound(nbytes: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line a phase; ``elapsed_s`` = seconds since the script began."""
+    print(json.dumps({"phase": phase, **kw,
+                      "elapsed_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def fail(msg: str) -> int:
@@ -275,6 +292,36 @@ def box_match_share(want, got, iou_min: float = 0.9) -> float:
     return hits / max(total, 1)
 
 
+def json_differences(a, b, path=""):
+    """Every leaf (or shape) where two JSON values differ -> (path, a, b)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in sorted(set(a) | set(b)):
+            p = f"{path}.{k}" if path else k
+            if k not in a or k not in b:
+                yield p, a.get(k, "<missing>"), b.get(k, "<missing>")
+            else:
+                yield from json_differences(a[k], b[k], p)
+    elif isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from json_differences(x, y, f"{path}[{i}]")
+    elif type(a) is not type(b) or a != b:
+        yield path, a, b
+
+
+def headers_found(*names) -> dict:
+    """Whether ``g++ -E`` finds each C header (nothing is built)."""
+    found = {}
+    for name in names:
+        try:
+            res = subprocess.run(
+                ["g++", "-E", "-x", "c++", "-"], input=f"#include <{name}>\n",
+                capture_output=True, text=True, timeout=60)
+            found[name] = res.returncode == 0
+        except (OSError, subprocess.SubprocessError):
+            found[name] = False
+    return found
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "synapta_tpu_torch")):
         return fail("synapta_tpu_torch/ not found next to chip_smoke.py")
@@ -305,7 +352,8 @@ def main() -> int:
     CARD.update(card=smi_line)
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=device_name, capability=list(cap), count=torch.cuda.device_count(),
-         python=sys.version.split()[0], **CARD)
+         python=sys.version.split()[0],
+         headers=headers_found("jpeglib.h", "zlib.h"), **CARD)
     if cap != (9, 0):
         return fail(f"needs compute capability 9.0 (Hopper), got {cap}")
     dev = torch.device("cuda")
@@ -328,9 +376,11 @@ def main() -> int:
     from synapta_tpu_torch.io.pdf_writer import make_scanned_book, make_test_book
     from synapta_tpu_torch.models import detector as D
     from synapta_tpu_torch.ocr.linedet import fuse_text_mask
+    from synapta_tpu_torch.ops import features
     from synapta_tpu_torch.ops.cc import connected_components_reference
     from synapta_tpu_torch.ops.cuda_cc import connected_components_cuda
     from synapta_tpu_torch.ops.cuda_kernels import (
+        fused_edge_stats,
         fused_edge_stats_cuda,
         fused_edge_stats_reference,
     )
@@ -437,28 +487,58 @@ def main() -> int:
          bound_share=db_row["bound_ms"] / db_row["ms"], **CARD)
 
     # ----------------------------------------------------- 3. edge stats
+    # both routes of the one kernel: the default (what the main path runs:
+    # centred opens, wrapped NMS, six counts with the union) and the Pallas
+    # kernel's (five counts), each against its twin on the rendered crops
+    # and on integer-valued noise
     gray = gray_u8.to(torch.float32)
     gray[-1] = 255.0  # one blank crop
     gray = gray.contiguous()
-    got = fused_edge_stats_cuda(gray)
-    torch.cuda.synchronize()
-    want = fused_edge_stats_reference(gray)
-    edge_err = float((got - want).abs().max())
-    if edge_err != 0.0:
-        emit("edge_stats", got=got.tolist(), want=want.tolist())
-        return fail("edge-stats kernel != twin")
-    if float(got[-1].abs().sum()) != 0.0:
-        return fail("blank crop has nonzero edge counts")
-    edge_ms = cuda_ms(lambda: fused_edge_stats_cuda(gray))
-    edge_plain_ms = cuda_ms(lambda: fused_edge_stats_reference(gray))
-    # bound: the gray batch in, (B, 5) counts out; 60 float32 operations a
-    # pixel (the Pallas kernel's CostEstimate)
-    edge_bound_ms, edge_bound_by = bound(gray.numel() * 4 + got.numel() * 4,
-                                         60.0 * gray.numel())
-    emit("edge_stats", exact=True, shape=list(gray.shape),
-         counts_crop0=got[0].tolist(), ms=edge_ms, plain_ms=edge_plain_ms,
-         bound_ms=edge_bound_ms, bound_by=edge_bound_by,
-         bound_share=edge_bound_ms / edge_ms, **CARD)
+    noise = torch.from_numpy(gen.integers(0, 256, (16, 512, 512)).astype(
+        np.float32)).to(dev)
+    ROUTES = {"default": False, "pallas": True}
+    edge = {}
+    for route, use_pallas in ROUTES.items():
+        row = {"max_abs_err": 0.0}
+        for kind, g in (("rendered", gray), ("noise", noise)):
+            got = fused_edge_stats_cuda(g, use_pallas=use_pallas)
+            torch.cuda.synchronize()
+            want = fused_edge_stats_reference(g, use_pallas=use_pallas)
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     float((got - want).abs().max()))
+            if row["max_abs_err"] != 0.0 or got.shape != want.shape:
+                emit("edge_stats", route=route, input=kind, got=got.tolist(),
+                     want=want.tolist())
+                return fail(f"edge-stats kernel != twin ({route} route, {kind})")
+            row[f"counts_crop0_{kind}"] = got[0].tolist()
+        got = fused_edge_stats_cuda(gray, use_pallas=use_pallas)
+        if tuple(got.shape) != (16, 5 if use_pallas else 6):
+            return fail(f"edge-stats {route} route returned {tuple(got.shape)}")
+        if float(got[-1].abs().sum()) != 0.0:
+            return fail("blank crop has nonzero edge counts")
+        # bound: the gray batch in, the counts out; 60 float32 operations a
+        # pixel (the Pallas kernel's CostEstimate)
+        row["bytes"] = gray.numel() * 4 + got.numel() * 4
+        row["bound_ms"], row["bound_by"] = bound(row["bytes"], 60.0 * gray.numel())
+        edge[route] = row
+    # the two routes timed in turns within this one call
+    turns = {r: {"ms": [], "plain_ms": []} for r in ROUTES}
+    for route in ("default", "pallas", "pallas", "default"):
+        up = ROUTES[route]
+        turns[route]["ms"].append(cuda_ms(
+            lambda: fused_edge_stats_cuda(gray, use_pallas=up)))
+        turns[route]["plain_ms"].append(cuda_ms(
+            lambda: fused_edge_stats_reference(gray, use_pallas=up)))
+    for route, row in edge.items():
+        row["ms_turns"] = turns[route]["ms"]
+        row["ms"] = sum(turns[route]["ms"]) / 2
+        row["plain_ms"] = sum(turns[route]["plain_ms"]) / 2
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    if edge["default"]["counts_crop0_rendered"][:5] == edge["pallas"][
+            "counts_crop0_rendered"] and edge["default"]["counts_crop0_noise"][
+            :5] == edge["pallas"]["counts_crop0_noise"]:
+        return fail("the two edge-stats routes gave the same counts")
+    emit("edge_stats", exact=True, shape=list(gray.shape), routes=edge, **CARD)
 
     # ----------------------------------------------------- 4. recognizer
     from synapta_tpu_torch.config import OCRConfig
@@ -519,6 +599,42 @@ def main() -> int:
         return fail(f"db detector: prob agreement {prob_agree:.5f}, boxes "
                     f"matched {box_share:.3f}")
 
+    # the native-resolution path: a crop box-downscaled by 1.05 < ratio <= 2
+    # is detected on 512² views of its native image (2 x 2 views, stride 448)
+    from PIL import Image, ImageDraw, ImageFont
+
+    import synapta_tpu_torch.io.pdf_writer as pdf_writer
+    from synapta_tpu_torch.eval import _prep_standalone
+
+    rng4 = np.random.default_rng(4)
+    im = Image.new("L", (820, 640), 240)
+    draw = ImageDraw.Draw(im)
+    font = ImageFont.truetype(pdf_writer.DEJAVU, 15)
+    words = "the return of each asset depends on its weight and risk".split()
+    for y in range(30, 600, 26):
+        draw.text((40, y), " ".join(rng4.permutation(words)[:8]), fill=20, font=font)
+    img = np.asarray(im, np.float32) + rng4.normal(0, 4, (640, 820))
+    img = np.repeat(np.clip(img, 0, 255).astype(np.uint8)[..., None], 3, -1)
+    nat_canvas, _, nat_ctx = _prep_standalone(img, 512)
+    if not 1.05 < nat_ctx[1] <= 2.0:
+        return fail(f"db_native: the crop's ratio {nat_ctx[1]} takes the canvas path")
+    n_views = len(det._views(np.zeros((int(640 * 960 / 820), 960), np.uint8)))
+    connected_components_cuda.launches = 0
+    t = time.perf_counter()
+    nat_gpu = det.detect_lines(nat_canvas[None], hires=[nat_ctx])
+    nat_wall = time.perf_counter() - t
+    native_cc_launches = connected_components_cuda.launches
+    nat_cpu = det_cpu.detect_lines(nat_canvas[None], hires=[nat_ctx])
+    nat_share = box_match_share(nat_cpu, nat_gpu)
+    emit("db_native", crop=list(img.shape), ratio=nat_ctx[1], views=n_views,
+         lines=[len(nat_gpu[0]), len(nat_cpu[0])],
+         box_match_share_iou90=nat_share, box_match_min=DB_BOX_MATCH_MIN,
+         cc_launches=native_cc_launches, wall_s=nat_wall, **CARD)
+    if (nat_share < DB_BOX_MATCH_MIN or len(nat_cpu[0]) < 15 or n_views != 4
+            or native_cc_launches < 1):
+        return fail(f"db_native: boxes matched {nat_share:.3f}, {len(nat_cpu[0])} "
+                    f"lines, {n_views} views, {native_cc_launches} CC launches")
+
     # ------------------------------------------------------------ 6. e2e
     from synapta_tpu_torch.config import PipelineConfig
     from synapta_tpu_torch.llm.fake import DisabledClient
@@ -544,20 +660,64 @@ def main() -> int:
         return (s.segment_id, s.page_no, (b.x0, b.y0, b.x1, b.y1),
                 str(s.segment_type), s.caption_text)
 
+    def payload(out):
+        with open(os.path.join(out, "smoke_visual_segments.json")) as f:
+            return json.load(f)
+
+    # the route of every edge-stats launch from here on, beside the count
+    routes_seen = []
+
+    def recording_edge_stats(gray, line_k=20, grid_k=25, high=150.0,
+                             use_pallas=False):
+        routes_seen.append("pallas" if use_pallas else "default")
+        return fused_edge_stats(gray, line_k, grid_k, high, use_pallas)
+
+    features.fused_edge_stats = recording_edge_stats  # what _core_features calls
+
+    def edge_launches():
+        """The edge-stats launches since the counters were set to 0, with
+        the route they ran; None unless each was seen and ran the default."""
+        seen = routes_seen[:]
+        del routes_seen[:]
+        n = fused_edge_stats_cuda.launches
+        if seen != ["default"] * n:
+            return None
+        return {"route": "default", "launches": n}
+
     book4 = os.path.join(tmp, "book4.pdf")
     make_test_book(book4, pages=4, seed=SEED)
     p_gpu, s_gpu, w_gpu = run(book4, os.path.join(tmp, "o4_gpu"), "cuda")
     p_cpu, s_cpu, w_cpu = run(book4, os.path.join(tmp, "o4_cpu"), "cpu")
     same = [key(s) for s in s_gpu] == [key(s) for s in s_cpu]
+    # the whole JSON payloads, key by key
+    conf_diff = {"block": 0.0, "mean": 0.0}
+    other = []
+    for path, a, b in json_differences(payload(os.path.join(tmp, "o4_gpu")),
+                                       payload(os.path.join(tmp, "o4_cpu"))):
+        leaf = path.rsplit(".", 1)[-1]
+        if leaf == "image_path" and os.path.basename(a) == os.path.basename(b):
+            continue
+        if (leaf == "confidence" and ".ocr_result." in path
+                and isinstance(a, float) and isinstance(b, float)):
+            kind = "block" if ".blocks[" in path else "mean"
+            conf_diff[kind] = max(conf_diff[kind], abs(a - b))
+            continue
+        other.append([path, a, b])
     emit("e2e_4page", segments=len(s_gpu), cuda_equals_cpu=same,
+         json_equal_but_confidences=not other, differing_keys=other[:20],
+         confidence_max_abs_diff=conf_diff, confidence_diff_max=CONF_DIFF_MAX,
          errors=[p_gpu.stats.errors, p_cpu.stats.errors],
          wall_s_cuda=w_gpu, wall_s_cpu=w_cpu, **CARD)
     if not same or not s_gpu or p_gpu.stats.errors or p_cpu.stats.errors:
         return fail("4-page book: cuda and cpu segments differ (or errors)")
+    if other or any(conf_diff[k] > CONF_DIFF_MAX[k] for k in conf_diff):
+        return fail(f"4-page book: the cuda and cpu JSON payloads differ: "
+                    f"{other[:5]}, confidences {conf_diff}")
 
     # the main path: counters start at 0 here and are read right after
     connected_components_cuda.launches = 0
     fused_edge_stats_cuda.launches = 0
+    del routes_seen[:]
     stage0 = dict(TIMERS.totals)
     chunks0 = TIMERS.counts.get("features_dispatch", 0)
     out64 = os.path.join(tmp, "o64")
@@ -566,6 +726,7 @@ def main() -> int:
                if v - stage0.get(k, 0.0) > 0}
     launches = {"cc": connected_components_cuda.launches,
                 "edge_stats": fused_edge_stats_cuda.launches}
+    edge_by_path = {"book64": edge_launches()}
     chunks = TIMERS.counts.get("features_dispatch", 0) - chunks0
     st = pipe.stats
     written = all(os.path.exists(os.path.join(out64, f"smoke_{s}"))
@@ -602,6 +763,8 @@ def main() -> int:
     book64_pages_per_s = st.pages / wall
     if launches["cc"] < 4 * chunks or launches["edge_stats"] < chunks or chunks == 0:
         return fail(f"kernel launches {launches} too few for {chunks} chunks")
+    if edge_by_path["book64"] is None:
+        return fail("64-page book: an edge-stats launch off the default route")
     if recall < 0.95 or total == 0 or hits / total < 0.75:
         return fail(f"quality: recall {recall:.3f}, classified {hits}/{total}")
 
@@ -641,6 +804,7 @@ def main() -> int:
     P.VisualSegmentationPipeline, D.boxes_device = RecordedPipeline, counted_boxes
     connected_components_cuda.launches = 0
     fused_edge_stats_cuda.launches = 0
+    del routes_seen[:]
     chunks0 = TIMERS.counts.get("features_dispatch", 0)
     try:
         scanned = E.evaluate_scanned(pages=16, seed=SEED, device="cuda")
@@ -650,6 +814,7 @@ def main() -> int:
     torch.cuda.synchronize()
     scan_launches = {"cc": connected_components_cuda.launches,
                      "edge_stats": fused_edge_stats_cuda.launches}
+    edge_by_path["scanned16"] = edge_launches()
     scan_chunks = TIMERS.counts.get("features_dispatch", 0) - chunks0
     sp = pipes[0]
     sp.close()
@@ -667,7 +832,8 @@ def main() -> int:
                     f"{scanned['scanned_ocr_cer']}")
     if (not db_chunks or scan_chunks == 0
             or scan_launches["cc"] < 4 * scan_chunks + len(db_chunks)
-            or scan_launches["edge_stats"] < scan_chunks):
+            or scan_launches["edge_stats"] < scan_chunks
+            or edge_by_path["scanned16"] is None):
         return fail(f"scanned kernel launches {scan_launches} too few for "
                     f"{scan_chunks} analyze and {len(db_chunks)} DB chunks")
 
@@ -908,20 +1074,25 @@ def main() -> int:
         dp_rows.append({"site": site, "shape": list(halves[0].shape),
                         "ms_both_shards": ms})
     gray_halves = [h.contiguous() for h in gray.chunk(2)]
-    got = on_shards(fused_edge_stats_cuda, gray_halves)
-    for h, g in zip(gray_halves, got):
-        if not torch.equal(g, fused_edge_stats_reference(h)):
-            return fail("edge-stats kernel != twin on a side stream")
-    dp_edge_ms = forked_ms(mesh2, [lambda h=h: fused_edge_stats_cuda(h)
-                                   for h in gray_halves])
-    dp_edge_plain_ms = cuda_ms(lambda: [fused_edge_stats_reference(h)
-                                        for h in gray_halves])
+    dp_edge = {}
+    for route, up in ROUTES.items():
+        got = on_shards(lambda h: fused_edge_stats_cuda(h, use_pallas=up),
+                        gray_halves)
+        for h, g in zip(gray_halves, got):
+            if not torch.equal(g, fused_edge_stats_reference(h, use_pallas=up)):
+                return fail(f"edge-stats kernel != twin on a side stream "
+                            f"({route} route)")
+        dp_edge[route] = {
+            "ms": forked_ms(mesh2, [lambda h=h: fused_edge_stats_cuda(
+                h, use_pallas=up) for h in gray_halves]),
+            "plain_ms": cuda_ms(lambda: [fused_edge_stats_reference(
+                h, use_pallas=up) for h in gray_halves])}
     torch.cuda.synchronize()
     emit("dp_kernels", exact=True, shards=2, cc_sites=dp_rows,
          cc_ms_per_chunk=dp_cc_ms, cc_plain_ms_per_chunk=dp_cc_plain_ms,
          cc_unsharded_ms_per_chunk=cc_ms,
-         edge_shape=list(gray_halves[0].shape), edge_ms=dp_edge_ms,
-         edge_plain_ms=dp_edge_plain_ms, edge_unsharded_ms=edge_ms, **CARD)
+         edge_shape=list(gray_halves[0].shape), edge_routes=dp_edge,
+         edge_unsharded_ms={r: edge[r]["ms"] for r in edge}, **CARD)
 
     def analyze_wall(mesh):
         torch.cuda.synchronize()
@@ -945,22 +1116,23 @@ def main() -> int:
     if not same:
         return fail("device_analyze on 2 shards != the unsharded pass")
 
-    def payload(out):
-        with open(os.path.join(out, "smoke_visual_segments.json")) as f:
-            p = json.load(f)
-        for seg in p["segments"]:
+    def segments_of(out):
+        segs = payload(out)["segments"]
+        for seg in segs:
             seg["image_path"] = os.path.basename(seg["image_path"])
-        return p["segments"]
+        return segs
 
     # the main path on the 2-shard mesh: counters start at 0 here and are
     # read right after
     connected_components_cuda.launches = 0
     fused_edge_stats_cuda.launches = 0
+    del routes_seen[:]
     out64dp = os.path.join(tmp, "o64dp")
     dp_pipe, dp_segs, dp_wall = run(book64, out64dp, "cuda", mesh=mesh2)
     dp_launches = {"cc": connected_components_cuda.launches,
                    "edge_stats": fused_edge_stats_cuda.launches}
-    seg1, seg2 = payload(out64), payload(out64dp)
+    edge_by_path["book64_dp2"] = edge_launches()
+    seg1, seg2 = segments_of(out64), segments_of(out64dp)
     differing = [a["segment_id"] for a, b in zip(seg1, seg2) if a != b]
     emit("dp_pipeline", pages=dp_pipe.stats.pages, segments=len(dp_segs),
          errors=dp_pipe.stats.errors, mesh=dp_pipe.mesh.shape,
@@ -972,8 +1144,10 @@ def main() -> int:
     if dp_pipe.stats.errors or not dp_segs or seg1 != seg2:
         return fail("64-page book on 2 shards: errors, or other segments than "
                     "on the mesh of one")
-    if dp_launches != {k: 2 * v for k, v in launches.items()}:
-        return fail(f"2-shard launches {dp_launches} are not twice {launches}")
+    if (dp_launches != {k: 2 * v for k, v in launches.items()}
+            or edge_by_path["book64_dp2"] is None):
+        return fail(f"2-shard launches {dp_launches} are not twice {launches}, "
+                    "or an edge-stats launch ran off the default route")
 
     # ----------------------------------------------- 11. rank meshes (dist)
     # the dp x tp step at full width in spawned ranks against the steps of
@@ -1135,24 +1309,28 @@ def main() -> int:
          "launches_by_path": {"book64": launches["cc"],
                               "scanned16": scan_launches["cc"],
                               "book64_dp2": dp_launches["cc"]},
+         "db_native_launches": native_cc_launches,
          "dp2": {"shape": dp_rows[0]["shape"], "ms": dp_cc_ms,
                  "plain_ms": dp_cc_plain_ms},
          "db_site": {"ms": db_row["ms"], "plain_ms": db_row["plain_ms"],
                      "bound_ms": db_row["bound_ms"],
                      "bound_by": db_row["bound_by"]}},
+        # ms, plain_ms, max_abs_err and bound_ms are the default route's (the
+        # one every path above ran); "routes" has both
         {"name": "fused_edge_stats", "route": "cuda",
          "source": "synapta_tpu_torch/csrc/edge_stats.cu",
          "replaces": "synapta_tpu/ops/pallas_kernels.py:162",
          "launches": (launches["edge_stats"] + scan_launches["edge_stats"]
                       + dp_launches["edge_stats"]),
-         "max_abs_err": edge_err,
-         "ms": edge_ms, "plain_ms": edge_plain_ms, "bound_ms": edge_bound_ms,
-         "bound_by": edge_bound_by, "library_ms": None,
-         "launches_by_path": {"book64": launches["edge_stats"],
-                              "scanned16": scan_launches["edge_stats"],
-                              "book64_dp2": dp_launches["edge_stats"]},
-         "dp2": {"shape": list(gray_halves[0].shape), "ms": dp_edge_ms,
-                 "plain_ms": dp_edge_plain_ms}},
+         "max_abs_err": edge["default"]["max_abs_err"],
+         "ms": edge["default"]["ms"], "plain_ms": edge["default"]["plain_ms"],
+         "bound_ms": edge["default"]["bound_ms"],
+         "bound_by": edge["default"]["bound_by"], "library_ms": None,
+         "routes": {r: {k: row[k] for k in ("ms", "plain_ms", "max_abs_err",
+                                            "bound_ms", "bound_by")}
+                    for r, row in edge.items()},
+         "launches_by_path": edge_by_path,
+         "dp2": {"shape": list(gray_halves[0].shape), **dp_edge}},
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,8 @@ SIGNATURES = {
     "synapta_cc_plan": [_I, _I, _P, _P],
     # mask, labels, rounds_out, B, H, W, max_rounds, connectivity, stream
     "synapta_cc": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # gray, out, edge_bits, B, H, W, line_k, grid_k, high, low, stream
-    "synapta_edge_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # gray, out, edge_bits, B, H, W, line_k, grid_k, high, low, centred, stream
+    "synapta_edge_stats": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P],
 }
 
 _LOCK = threading.Lock()

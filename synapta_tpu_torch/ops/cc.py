@@ -1,6 +1,7 @@
 """Connected components and per-component statistics — counterpart of
 synapta_tpu/ops/cc.py.
 
+``component_stats`` is the JAX package's host function, copied verbatim.
 ``connected_components`` is the public wrapper: a CUDA tensor goes to the
 hand-written kernel (ops/cuda_cc.py, csrc/cc.cu), a CPU tensor to the plain
 twin ``connected_components_reference``. Both label each ink pixel with its
@@ -8,6 +9,9 @@ component's max initial id (y*W + x + 1); background is 0.
 """
 from __future__ import annotations
 
+from typing import Dict, List
+
+import numpy as np
 import torch
 
 _BIG = 1 << 32  # segment offset for the int64 segmented scans (> any value)
@@ -90,6 +94,44 @@ def connected_components(mask: torch.Tensor, max_iters: int = 64,
     if mask.device.type != "cpu":
         raise ValueError(f"connected_components: unsupported device {mask.device}")
     return connected_components_reference(mask, max_iters, connectivity)
+
+
+def component_stats(labels: np.ndarray, min_area: int = 1) -> List[Dict]:
+    """Host-side per-component stats from ONE label map (H, W).
+
+    Returns [{label, area, bbox(x0,y0,x1,y1 inclusive-exclusive), w, h}],
+    sorted by area descending.
+    """
+    lab = np.asarray(labels)
+    flat = lab.ravel()
+    nz = flat[flat > 0]
+    if nz.size == 0:
+        return []
+    uniq, inv_idx, counts = np.unique(nz, return_inverse=True, return_counts=True)
+    ys, xs = np.nonzero(lab)
+    # inv maps each nonzero pixel -> component index
+    x0 = np.full(len(uniq), np.inf)
+    x1 = np.full(len(uniq), -np.inf)
+    y0 = np.full(len(uniq), np.inf)
+    y1 = np.full(len(uniq), -np.inf)
+    np.minimum.at(x0, inv_idx, xs)
+    np.maximum.at(x1, inv_idx, xs)
+    np.minimum.at(y0, inv_idx, ys)
+    np.maximum.at(y1, inv_idx, ys)
+    out = []
+    for i in np.argsort(-counts):
+        if counts[i] < min_area:
+            continue
+        out.append(
+            {
+                "label": int(uniq[i]),
+                "area": int(counts[i]),
+                "bbox": (int(x0[i]), int(y0[i]), int(x1[i]) + 1, int(y1[i]) + 1),
+                "w": int(x1[i] - x0[i] + 1),
+                "h": int(y1[i] - y0[i] + 1),
+            }
+        )
+    return out
 
 
 def component_stats_device(labels: torch.Tensor, k: int = 128):

@@ -8,13 +8,18 @@ device-to-host copy happens per chunk. The layout is identical to the JAX
 package's (``_SCALAR_KEYS``, then 15 k-means centre values, 5 counts, and
 MAX_LINES x 5 boxes).
 
-The edge/open/grid counts always come from the fused edge-stats kernel's
-semantics (ops/cuda_kernels.py): the CUDA kernel on the GPU, its plain twin
-on the CPU, so ``line_pixels`` is ``v + h + diag`` everywhere. That equals
-the JAX pass with ``use_pallas=True``.
+The edge/open/grid counts come from the fused edge-stats kernel
+(ops/cuda_kernels.py) on a CUDA tensor and from its plain twin on a CPU
+tensor, on either of the JAX package's two routes, switched as there by
+``use_pallas``: False, the default, is the JAX default route (centred opens,
+wrapped NMS neighbours, ``line_pixels = |v_open U h_open| + diag``); True is
+the Pallas kernel's semantics (``line_pixels = v + h + diag``). The entry
+points ask ``_pallas_wanted()``, which reads ``SYNAPTA_PALLAS_EDGE`` as the
+JAX package does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict
 
@@ -32,11 +37,20 @@ from synapta_tpu_torch.ops.filters import (
     diagonal_run_mask,
     downsample2,
     downsample2_min,
+    dilate,
     erode,
     morph_open,
     sobel_edges,
 )
 from synapta_tpu_torch.ops.kmeans import dominant_colors
+
+
+def _open_iter2(img: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """cv2 MORPH_OPEN with iterations=2 == erode twice then dilate twice,
+    equivalent to one open with the (2k-1)-sized kernel."""
+    ekh = 2 * kh - 1 if kh > 1 else 1
+    ekw = 2 * kw - 1 if kw > 1 else 1
+    return dilate(erode(img, ekh, ekw), ekh, ekw)
 
 
 def _run_length_rows(mask: torch.Tensor, min_len: int) -> torch.Tensor:
@@ -154,12 +168,14 @@ def _pack(out: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def _core_features(gray_u8: torch.Tensor, rgb_q: torch.Tensor,
-                   line_kernel: int = 20,
-                   grid_kernel: int = 25) -> Dict[str, torch.Tensor]:
-    """Fused non-CC features (the JAX ``_core_features`` kernel route).
+                   line_kernel: int = 20, grid_kernel: int = 25,
+                   use_pallas: bool = False) -> Dict[str, torch.Tensor]:
+    """Fused non-CC features.
 
     gray_u8: (B, H, W) uint8 luma; rgb_q: (B, h, w, 3) uint8 color sample
-    used only by k-means."""
+    used only by k-means. use_pallas: the edge/open/grid counts with the
+    Pallas kernel's semantics and ``line_pixels`` as the v + h sum, instead
+    of the default route's centred opens and the union count."""
     B, H, W = gray_u8.shape
     dev = gray_u8.device
     gray = gray_u8.to(torch.float32)
@@ -171,13 +187,16 @@ def _core_features(gray_u8: torch.Tensor, rgb_q: torch.Tensor,
     diag2 = diagonal_run_mask(edges, 24, anti=True)
     diag_pixels = box_count(diag1 | diag2)
 
-    stats = fused_edge_stats(gray, line_kernel, grid_kernel)
+    stats = fused_edge_stats(gray, line_kernel, grid_kernel,
+                             use_pallas=use_pallas)
     edge_count = stats[:, 0]
     v_pixels = stats[:, 1]
     h_pixels = stats[:, 2]
     grid_h = stats[:, 3]
     grid_v = stats[:, 4]
-    line_pixels = v_pixels + h_pixels + diag_pixels
+    # overall line pixels for connection counting: the union on the default
+    # route, the sum (union plus corner overlaps) on the Pallas route
+    line_pixels = (v_pixels + h_pixels if use_pallas else stats[:, 5]) + diag_pixels
 
     # circle / pie scoring: radial histogram of edge pixels around the ink
     # centroid (scatter_add, not the JAX one-hot: that would materialise a
@@ -264,13 +283,13 @@ def _core_features(gray_u8: torch.Tensor, rgb_q: torch.Tensor,
 
 @torch.inference_mode()
 def analyze(gray_u8: torch.Tensor, rgb_q: torch.Tensor,
-            sizes: torch.Tensor) -> torch.Tensor:
+            sizes: torch.Tensor, use_pallas: bool = False) -> torch.Tensor:
     """The whole per-crop analysis in one pass: features, component
     censuses and text-line boxes packed into one (B, n) float32 tensor on
     the input's device."""
     from synapta_tpu_torch.ocr.linedet import line_boxes_from_ink
 
-    out = _core_features(gray_u8, rgb_q, 20, 25)
+    out = _core_features(gray_u8, rgb_q, 20, 25, use_pallas=use_pallas)
     ink, vink, bg = out.pop("_ink"), out.pop("_vink"), out.pop("_bg")
     out.update(_component_censuses(ink, vink, bg, sizes))
     boxes = line_boxes_from_ink(ink)  # (B, MAX_LINES, 5)
@@ -278,15 +297,62 @@ def analyze(gray_u8: torch.Tensor, rgb_q: torch.Tensor,
     return torch.cat([packed, boxes.reshape(packed.shape[0], -1)], dim=1)
 
 
-def device_analyze(rgb, sizes=None, device="cuda", mesh=None):
+def _pallas_wanted() -> bool:
+    """A/B flag of the edge-stats route: SYNAPTA_PALLAS_EDGE=1 asks for the
+    Pallas kernel's semantics, anything else for the default route's."""
+    import os
+
+    return os.environ.get("SYNAPTA_PALLAS_EDGE", "0") == "1"
+
+
+def _host_split(rgb, sizes):
+    """HOST (B, H, W, 3) uint8 crops -> (gray u8, eighth-res RGB, (B, 2)
+    int32 sizes), what the analyze pass takes to the device."""
+    import numpy as np
+
+    from synapta_tpu_torch.ops.color import gray_quarter_host
+
+    B, H, W = rgb.shape[:3]
+    if sizes is None:
+        sizes = np.tile(np.array([H, W], np.int32), (B, 1))
+    gray, rgb_q = gray_quarter_host(np.asarray(rgb))
+    return gray, np.ascontiguousarray(rgb_q[:, ::2, ::2]), np.asarray(sizes, np.int32)
+
+
+def extract_crop_features(rgb, sizes=None, line_kernel: int = 20,
+                          grid_kernel: int = 25, device="cuda"):
+    """The feature pass over a crop batch, without the text-line boxes.
+    rgb: (B, H, W, 3) uint8 on the host; sizes: optional (B, 2)
+    [true_h, true_w] before padding. Default route. Returns HOST numpy
+    arrays, one packed copy from ``device``."""
+    device = torch.device(device)
+    gray, rgb_q, sizes = (torch.from_numpy(a).to(device)
+                          for a in _host_split(rgb, sizes))
+    with torch.inference_mode():
+        out = _core_features(gray, rgb_q, line_kernel, grid_kernel)
+        out.update(_component_censuses(out.pop("_ink"), out.pop("_vink"),
+                                       out.pop("_bg"), sizes))
+        packed = _pack(out).cpu().numpy()
+    B = packed.shape[0]
+    n = len(_SCALAR_KEYS)
+    res = {k: packed[:, i] for i, k in enumerate(_SCALAR_KEYS)}
+    res["kmeans_centers"] = packed[:, n : n + 15].reshape(B, 5, 3)
+    res["kmeans_counts"] = packed[:, n + 15 : n + 20].reshape(B, 5)
+    return res
+
+
+def device_analyze(rgb, sizes=None, device="cuda", mesh=None,
+                   use_pallas: bool = False):
     """Crop batch -> (features dict of host numpy arrays, (B, 128, 5) line
     boxes). The fused single-dispatch path used by the pipeline. With a
     mesh, the batch dim shards across its 'data' axis."""
-    packed = device_analyze_dispatch(rgb, sizes=sizes, device=device, mesh=mesh)
+    packed = device_analyze_dispatch(rgb, sizes=sizes, device=device, mesh=mesh,
+                                     use_pallas=use_pallas)
     return unpack_analysis(packed.cpu().numpy(), rgb.shape[0])
 
 
-def device_analyze_dispatch(rgb, sizes=None, device="cuda", mesh=None):
+def device_analyze_dispatch(rgb, sizes=None, device="cuda", mesh=None,
+                            use_pallas: bool = False):
     """Convert a HOST (B, H, W, 3) uint8 crop chunk to (gray u8, eighth-res
     RGB), move both to ``device`` and enqueue ``analyze``. Returns the
     packed tensor on the device without waiting for it; unpack on the host
@@ -297,24 +363,13 @@ def device_analyze_dispatch(rgb, sizes=None, device="cuda", mesh=None):
     its own device and stream; the result's ``cpu()`` puts the shards back
     in order. The analysis is per crop, so the shards equal the whole. A
     mesh of one is the unsharded pass on that mesh's device."""
-    import numpy as np
-
-    from synapta_tpu_torch.ops.color import gray_quarter_host
-
-    B, H, W = rgb.shape[:3]
-    if sizes is None:
-        sizes = np.tile(np.array([H, W], np.int32), (B, 1))
-    sizes = np.asarray(sizes, np.int32)
-    gray, rgb_q = gray_quarter_host(np.asarray(rgb))
-    rgb_q = rgb_q[:, ::2, ::2]
+    gray, rgb_q, sizes = _host_split(rgb, sizes)
     if mesh is not None and mesh.size > 1:
-        return mesh.dispatch(analyze, gray, rgb_q, sizes)
+        return mesh.dispatch(functools.partial(analyze, use_pallas=use_pallas),
+                             gray, rgb_q, sizes)
     device = torch.device(device) if mesh is None else mesh.devices[0]
-
-    def to_dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return analyze(to_dev(gray), to_dev(rgb_q), to_dev(sizes))
+    return analyze(*(torch.from_numpy(a).to(device)
+                     for a in (gray, rgb_q, sizes)), use_pallas=use_pallas)
 
 
 def unpack_analysis(packed, B: int):

@@ -40,6 +40,22 @@ def sobel_gradients(gray: torch.Tensor):
     return gx, gy
 
 
+def _degree_sectors(theta: torch.Tensor):
+    """NMS sectors of a gradient direction in radians, quantized in degrees as
+    the JAX package does -> (is_h, is_d1, is_v); what is left is the other
+    diagonal. The JAX source writes (deg + 180) % 180; the sum is left out
+    here (the remainder is the same number) because it costs the bits that
+    decide a boundary: the integer gradient (-408, 985) lies 1.8e-5 degrees
+    under 112.5, and 292.49998 rounds to 292.5 in float32. Without it every
+    integer gradient uint8 luma can give lands in the JAX package's sector
+    (tests/test_torch_edge_stats.py enumerates them)."""
+    adeg = torch.remainder(theta * (180.0 / math.pi), 180.0)
+    is_h = (adeg < 22.5) | (adeg >= 157.5)
+    is_d1 = (adeg >= 22.5) & (adeg < 67.5)
+    is_v = (adeg >= 67.5) & (adeg < 112.5)
+    return is_h, is_d1, is_v
+
+
 def sobel_edges(gray: torch.Tensor, low: float = 50.0, high: float = 150.0):
     """Canny-equivalent edge map: gradient magnitude, NMS along the
     quantized gradient direction, double threshold with one grow round.
@@ -51,10 +67,7 @@ def sobel_edges(gray: torch.Tensor, low: float = 50.0, high: float = 150.0):
     def shift(a, dy, dx):  # jnp.roll: wraps around
         return torch.roll(a, shifts=(dy, dx), dims=(1, 2))
 
-    adeg = torch.remainder(theta * (180.0 / math.pi) + 180.0, 180.0)
-    is_h = (adeg < 22.5) | (adeg >= 157.5)
-    is_d1 = (adeg >= 22.5) & (adeg < 67.5)
-    is_v = (adeg >= 67.5) & (adeg < 112.5)
+    is_h, is_d1, is_v = _degree_sectors(theta)
     n1 = torch.where(
         is_h, shift(mag, 0, 1),
         torch.where(is_d1, shift(mag, 1, 1),
@@ -92,6 +105,17 @@ def dilate(img: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
 
 def morph_open(img: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     return dilate(erode(img, kh, kw), kh, kw)
+
+
+def morph_open_h(img: torch.Tensor, k: int) -> torch.Tensor:
+    """Open with a horizontal 1 x k structuring element (grid rows, the
+    line-chart signal)."""
+    return morph_open(img, 1, k)
+
+
+def morph_open_v(img: torch.Tensor, k: int) -> torch.Tensor:
+    """Open with a vertical k x 1 element (bars, grid columns)."""
+    return morph_open(img, k, 1)
 
 
 def binarize_ink(gray: torch.Tensor, thresh: float = 200.0) -> torch.Tensor:

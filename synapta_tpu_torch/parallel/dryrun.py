@@ -75,13 +75,14 @@ def run(n_devices: int, device="cuda") -> None:
 
     # ---- 1. pipeline inference step over the ('data',) mesh --------------
     dmesh = data_mesh(n_devices, dev, virtual=True)
-    from synapta_tpu_torch.ops.features import device_analyze
+    from synapta_tpu_torch.ops.features import _pallas_wanted, device_analyze
 
     rng = np.random.default_rng(0)
     B = max(2 * n_devices, 8)
     canvases = rng.integers(0, 255, (B, 128, 128, 3), dtype=np.uint8)
     sizes = np.full((B, 2), 128, np.int32)
-    feats, boxes = device_analyze(canvases, sizes=sizes, mesh=dmesh)
+    feats, boxes = device_analyze(canvases, sizes=sizes, mesh=dmesh,
+                                  use_pallas=_pallas_wanted())
     assert feats["edge_count"].shape == (B,), feats["edge_count"].shape
     assert np.isfinite(feats["edge_count"]).all()
 

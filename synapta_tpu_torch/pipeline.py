@@ -432,7 +432,10 @@ class VisualSegmentationPipeline:
         return the pending device tensors WITHOUT waiting: CUDA launches are
         asynchronous, so the device keeps computing while the host prepares
         the next super-batch."""
-        from synapta_tpu_torch.ops.features import device_analyze_dispatch
+        from synapta_tpu_torch.ops.features import (
+            _pallas_wanted,
+            device_analyze_dispatch,
+        )
 
         cb = self.cfg.ocr.crop_batch
         n = canvases.shape[0]
@@ -448,6 +451,7 @@ class VisualSegmentationPipeline:
                 packed = device_analyze_dispatch(
                     chunk, sizes=np.array(chunk_sizes, np.int32),
                     device=self.device, mesh=self.mesh,
+                    use_pallas=_pallas_wanted(),
                 )
             pending.append((chunk, real, chunk_sizes, packed, start))
         return pending

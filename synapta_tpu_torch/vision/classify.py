@@ -15,6 +15,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from synapta_tpu_torch.config import HeuristicsConfig
+from synapta_tpu_torch.ops.cc import component_stats
 
 
 class CropFeatures:

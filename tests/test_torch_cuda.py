@@ -78,6 +78,12 @@ def _grays():
         rng.integers(0, 256, (2, 512, 512)).astype(np.float32),
         rng.integers(0, 256, (2, 40, 70)).astype(np.float32),  # ragged shape
         np.full((1, 64, 64), 255.0, np.float32),
+        # one crop, W no multiple of 32, H shorter than either window's half
+        (rng.integers(0, 2, (1, 7, 3)).repeat(15, 2) * 255.0).astype(np.float32),
+        # narrower than a window's half, taller than a stencil band
+        (rng.integers(0, 2, (1, 5, 13)).repeat(9, 1) * 255.0).astype(np.float32),
+        rng.integers(0, 256, (1, 17, 33)).astype(np.float32),  # row H-1 is a halo
+        rng.integers(0, 256, (3, 1, 100)).astype(np.float32),  # one row
     ]
 
 
@@ -100,8 +106,12 @@ def test_cc_kernel_equals_twin(conn, cap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("line_k,grid_k,high", [(20, 25, 150.0), (4, 6, 90.0)])
-def test_edge_stats_kernel_equals_twin(line_k, grid_k, high):
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("line_k,grid_k,high", [(20, 25, 150.0), (4, 6, 90.0),
+                                                (1, 2, 150.0)])
+def test_edge_stats_kernel_equals_twin(line_k, grid_k, high, use_pallas):
+    """Both routes, all six (five) counts, on integer-valued gray (the
+    default route's sectors are exact for that only)."""
     _need_cuda()
     from synapta_tpu_torch.ops.cuda_kernels import (
         fused_edge_stats_cuda,
@@ -110,9 +120,14 @@ def test_edge_stats_kernel_equals_twin(line_k, grid_k, high):
 
     for g in _grays():
         x = torch.from_numpy(g).cuda()
-        got = fused_edge_stats_cuda(x, line_k, grid_k, high)
+        got = fused_edge_stats_cuda(x, line_k, grid_k, high, use_pallas)
         torch.cuda.synchronize()
-        assert torch.equal(got, fused_edge_stats_reference(x, line_k, grid_k, high))
+        want = fused_edge_stats_reference(x, line_k, grid_k, high, use_pallas)
+        assert got.shape == (g.shape[0], 5 if use_pallas else 6)
+        assert torch.equal(got, want), (g.shape, got.tolist(), want.tolist())
+        if not use_pallas:  # the union is no more than the sum, no less than each
+            assert bool((got[:, 5] <= got[:, 1] + got[:, 2]).all())
+            assert bool((got[:, 5] >= torch.maximum(got[:, 1], got[:, 2])).all())
 
 
 @pytest.mark.cuda
@@ -135,6 +150,21 @@ def test_wrappers_count_launches_and_check_inputs():
         connected_components(m.to(torch.float64))  # no silent fallback
     with pytest.raises(ValueError):
         fused_edge_stats(m[:, :, ::2])  # not contiguous
+    for use_pallas in (False, True):  # either route launches or raises
+        n_es = fused_edge_stats_cuda.launches
+        fused_edge_stats(m, use_pallas=use_pallas)
+        assert fused_edge_stats_cuda.launches == n_es + 1
+        with pytest.raises(ValueError):
+            fused_edge_stats(m.to(torch.float64), use_pallas=use_pallas)
+        with pytest.raises(ValueError):
+            fused_edge_stats(m[0], use_pallas=use_pallas)  # not (B, H, W)
+        with pytest.raises(ValueError):
+            fused_edge_stats(m, line_k=0, use_pallas=use_pallas)
+        with pytest.raises(ValueError):
+            fused_edge_stats_cuda(m.cpu(), use_pallas=use_pallas)
+        with pytest.raises(RuntimeError):  # the opens' bitmap outgrows a block
+            fused_edge_stats(torch.ones((1, 2048, 2048), device="cuda"),
+                             use_pallas=use_pallas)
     with pytest.raises(ValueError):
         connected_components(torch.ones((1, 2048, 2048), device="cuda"))  # too big
 
@@ -289,15 +319,17 @@ def test_kernels_on_shard_streams_equal_twins():
         with mesh.stream(i):
             cc.append(connected_components_cuda(
                 masks[8 * i:8 * i + 8].contiguous(), 6, 8, return_rounds=True))
-            es.append(fused_edge_stats_cuda(grays[8 * i:8 * i + 8].contiguous()))
+            es.append([fused_edge_stats_cuda(grays[8 * i:8 * i + 8].contiguous(),
+                                             use_pallas=up) for up in (False, True)])
     torch.cuda.synchronize()
     for i in range(2):
         want, rounds = connected_components_reference(
             masks[8 * i:8 * i + 8], 6, 8, return_rounds=True)
         assert torch.equal(cc[i][0], want)
         assert cc[i][1].cpu().tolist() == rounds.tolist()
-        assert torch.equal(es[i],
-                           fused_edge_stats_reference(grays[8 * i:8 * i + 8]))
+        for got, up in zip(es[i], (False, True)):
+            assert torch.equal(got, fused_edge_stats_reference(
+                grays[8 * i:8 * i + 8], use_pallas=up))
 
 
 @pytest.mark.cuda

@@ -179,10 +179,10 @@ def test_device_analyze_sharded_equals_unsharded(chunk8):
         tfeat.device_analyze_dispatch(c[:6], sizes=sizes[:6], mesh=mesh)
 
 
-def test_device_analyze_sharded_matches_jax(chunk8, monkeypatch):
+def test_device_analyze_sharded_matches_jax(chunk8):
+    """Both on their default routes (XLA opens, the union count)."""
     need_8_devices()
     c, sizes = chunk8
-    monkeypatch.setattr(jfeat, "_pallas_wanted", lambda: True)
     jf, jb = jfeat.device_analyze(c, sizes=sizes, mesh=jmesh.data_mesh(4))
     tf, tb = tfeat.device_analyze(c, sizes=sizes, device="cpu",
                                   mesh=tmesh.data_mesh(4, "cpu"))
