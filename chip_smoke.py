@@ -14,14 +14,17 @@ the card could take: bytes over HBM rate against operations over peak
 rate), checks the recognizer and the DB detector in bf16 on the GPU against
 float32 on the CPU, then drives the port's entry points on the GPU:
 
-- VisualSegmentationPipeline(device="cuda"): a 4-page book on the GPU and on
-  the CPU (the two segment JSON payloads must match key by key, apart from
-  the crops' directories and the bf16 recognizer's confidences within
-  ``CONF_DIFF_MAX``) and a 64-page book at the production chunk shapes;
+- VisualSegmentationPipeline(device="cuda"): the 8-page cycle of
+  ``make_test_book`` on the GPU and on the CPU (the two segment JSON
+  payloads must match key by key and the CSVs cell by cell, apart from the
+  entries of ``ALLOWED_DIFFERENCES``, the table the tier-1 tests hold the
+  port to the JAX pipeline with) and a 64-page book at the production
+  chunk shapes;
 - the scanned-page path (full-page rasters through the DB detector under the
-  default line_detector="auto"): a 4-page scanned book on the GPU and on the
-  CPU (segments must match) and a 16-page one through eval.evaluate_scanned
-  (0 errors, CER <= 0.025); ``DBLineDetector.detect_lines`` on a drawn crop
+  default line_detector="auto"): the 2-page scanned book of the tier-1 test
+  on the GPU and on the CPU (the whole JSON and CSV, as the 8-page book's),
+  a 4-page one (the same, but OCR confidences are printed, not bounded) and
+  a 16-page one through eval.evaluate_scanned (0 errors, CER <= 0.025); ``DBLineDetector.detect_lines`` on a drawn crop
   that takes the native-resolution path (2 x 2 views of 512², ``db_native``);
 - serve.BookQueue(device="cuda") over a test book and a scanned book: both
   done with 0 errors, and a second run skips both;
@@ -72,6 +75,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -91,12 +95,15 @@ F32_OPS_PER_S = 67e12
 DB_PROB_AGREE_MIN = 0.999
 DB_BOX_MATCH_MIN = 0.95
 SCANNED_CER_MAX = 0.025  # the JAX package's bar, tests/test_detector.py
-# The 4-page book's segment JSON on the card against the CPU's: a text
-# line's confidence (0..100) and an OCR result's mean confidence (0..1) may
-# differ by this much, the bf16 recognizer running through cuDNN and cuBLAS
-# there and through the CPU's kernels here (measured on an H100: 0.348 and
-# 4.2e-4); nothing else may but the directory of a crop's file.
-CONF_DIFF_MAX = {"block": 1.0, "mean": 2e-3}
+# The whole page cycle of make_test_book: the book the tier-1 test holds to
+# the JAX pipeline (tests/test_torch_pipeline.py); here the card is held to
+# the CPU on it, under ALLOWED_DIFFERENCES.
+BOOK8_SEED = 11
+# (pages, seed) of the scanned book the tier-1 test holds to the JAX
+# pipeline (tests/test_torch_entrypoints.py)
+SCAN2_PAGES_SEED = (2, 2)
+# an OCR confidence in the segment JSON: a text line's or a segment's mean
+CONFIDENCE_PATH = r"segments\[\d+\]\.ocr_result\.(blocks\[\d+\]\.)?confidence"
 # Training. Three steps of each trainer in float32 on the card against the
 # CPU, from the same parameters and batches (warmup 2 of 10, peak lr 1e-3).
 # The CPU rehearsal (float32 against float64 on the CPU) gave loss errors up
@@ -306,6 +313,51 @@ def json_differences(a, b, path=""):
             yield from json_differences(x, y, f"{path}[{i}]")
     elif type(a) is not type(b) or a != b:
         yield path, a, b
+
+
+# "The same segments": every key of one run's segment JSON equals the other
+# run's unless its path matches one of these entries. The tier-1 tests hold
+# the port on the CPU to the JAX pipeline with this table
+# (tests/test_torch_pipeline.py, tests/test_torch_entrypoints.py); the e2e
+# phases below hold the card to the CPU with it. No cell of the summary CSV
+# may differ (its confidence column is rounded to two decimals).
+# (JSON path pattern, how the values may differ, tolerance, reason)
+ALLOWED_DIFFERENCES = (
+    (r"segments\[\d+\]\.image_path", "basename", None,
+     "the crop's file lies in each run's own output directory; the file "
+     "names are equal"),
+    (r"segments\[\d+\]\.ocr_result\.blocks\[\d+\]\.confidence", "abs", 0.5,
+     "mean greedy-path probability of a text line, 0..100: the bf16 models "
+     "round alike but sum their float32 products in other orders (XLA's CPU "
+     "kernels, the CPU's, the card's); measured at most 0.145 port against "
+     "JAX on the 8-page book and 0.023 on the 2-page scanned book but its "
+     "knife-edge line (CPU), 0.139 and 0.066 the card against the CPU. A "
+     "frame whose greedy choice is a near-tie between blank and a character "
+     "moves a line's value by 2-3 with its text unchanged (4-page scanned "
+     "book, seed 42: 2.74 port against JAX, 0.61 the card against the CPU), "
+     "which this bound does not cover"),
+    (r"segments\[\d+\]\.ocr_result\.confidence", "abs", 1e-3,
+     "the mean of a segment's block confidences, 0..1; measured at most "
+     "6.0e-5 port against JAX (CPU), 1.2e-4 the card against the CPU; a "
+     "near-tie line moves it as it moves its block (1.4e-3, 4-page scanned "
+     "book, port against JAX)"),
+)
+
+
+def allowed_difference(path: str, a, b):
+    """The index of the ALLOWED_DIFFERENCES entry that lets this difference
+    pass, or None."""
+    for i, (pattern, how, tol, _) in enumerate(ALLOWED_DIFFERENCES):
+        if not re.fullmatch(pattern, path):
+            continue
+        if how == "basename":
+            ok = (isinstance(a, str) and isinstance(b, str)
+                  and os.path.basename(a) == os.path.basename(b))
+        else:
+            ok = (isinstance(a, float) and isinstance(b, float)
+                  and abs(a - b) <= tol)
+        return i if ok else None
+    return None
 
 
 def headers_found(*names) -> dict:
@@ -684,35 +736,44 @@ def main() -> int:
             return None
         return {"route": "default", "launches": n}
 
-    book4 = os.path.join(tmp, "book4.pdf")
-    make_test_book(book4, pages=4, seed=SEED)
-    p_gpu, s_gpu, w_gpu = run(book4, os.path.join(tmp, "o4_gpu"), "cuda")
-    p_cpu, s_cpu, w_cpu = run(book4, os.path.join(tmp, "o4_cpu"), "cpu")
+    def payload_differences(out_a, out_b):
+        """The keys of two runs' segment JSON outside ALLOWED_DIFFERENCES,
+        the largest confidence differences (a text line's, 0..100, and a
+        segment's mean, 0..1) and whether the summary CSVs are equal."""
+        conf = {"block": 0.0, "mean": 0.0}
+        outside = []
+        for path, a, b in json_differences(payload(out_a), payload(out_b)):
+            if (path.endswith(".confidence") and ".ocr_result." in path
+                    and isinstance(a, float) and isinstance(b, float)):
+                kind = "block" if ".blocks[" in path else "mean"
+                conf[kind] = max(conf[kind], abs(a - b))
+            if allowed_difference(path, a, b) is None:
+                outside.append([path, a, b])
+        csvs = []
+        for out in (out_a, out_b):
+            with open(os.path.join(out, "smoke_visual_summary.csv")) as f:
+                csvs.append(f.read())
+        return outside, conf, csvs[0] == csvs[1]
+
+    table = {pattern: tol for pattern, _, tol, _ in ALLOWED_DIFFERENCES}
+    book8 = os.path.join(tmp, "book8.pdf")
+    make_test_book(book8, pages=8, seed=BOOK8_SEED)
+    p_gpu, s_gpu, w_gpu = run(book8, os.path.join(tmp, "o8_gpu"), "cuda")
+    p_cpu, s_cpu, w_cpu = run(book8, os.path.join(tmp, "o8_cpu"), "cpu")
     same = [key(s) for s in s_gpu] == [key(s) for s in s_cpu]
-    # the whole JSON payloads, key by key
-    conf_diff = {"block": 0.0, "mean": 0.0}
-    other = []
-    for path, a, b in json_differences(payload(os.path.join(tmp, "o4_gpu")),
-                                       payload(os.path.join(tmp, "o4_cpu"))):
-        leaf = path.rsplit(".", 1)[-1]
-        if leaf == "image_path" and os.path.basename(a) == os.path.basename(b):
-            continue
-        if (leaf == "confidence" and ".ocr_result." in path
-                and isinstance(a, float) and isinstance(b, float)):
-            kind = "block" if ".blocks[" in path else "mean"
-            conf_diff[kind] = max(conf_diff[kind], abs(a - b))
-            continue
-        other.append([path, a, b])
-    emit("e2e_4page", segments=len(s_gpu), cuda_equals_cpu=same,
-         json_equal_but_confidences=not other, differing_keys=other[:20],
-         confidence_max_abs_diff=conf_diff, confidence_diff_max=CONF_DIFF_MAX,
+    outside, conf_diff, csv_equal = payload_differences(
+        os.path.join(tmp, "o8_gpu"), os.path.join(tmp, "o8_cpu"))
+    emit("e2e_8page", segments=len(s_gpu), cuda_equals_cpu=same,
+         keys_outside_table=len(outside), differing_keys=outside[:20],
+         confidence_max_abs_diff=conf_diff, allowed=table, csv_equal=csv_equal,
          errors=[p_gpu.stats.errors, p_cpu.stats.errors],
          wall_s_cuda=w_gpu, wall_s_cpu=w_cpu, **CARD)
-    if not same or not s_gpu or p_gpu.stats.errors or p_cpu.stats.errors:
-        return fail("4-page book: cuda and cpu segments differ (or errors)")
-    if other or any(conf_diff[k] > CONF_DIFF_MAX[k] for k in conf_diff):
-        return fail(f"4-page book: the cuda and cpu JSON payloads differ: "
-                    f"{other[:5]}, confidences {conf_diff}")
+    if (not same or len(s_gpu) != 8 or p_gpu.stats.errors
+            or p_cpu.stats.errors):
+        return fail("8-page book: cuda and cpu segments differ (or errors)")
+    if outside or not csv_equal:
+        return fail(f"8-page book: the cuda and cpu JSON payloads differ "
+                    f"outside the table: {outside[:5]}, csv equal {csv_equal}")
 
     # the main path: counters start at 0 here and are read right after
     connected_components_cuda.launches = 0
@@ -769,20 +830,55 @@ def main() -> int:
         return fail(f"quality: recall {recall:.3f}, classified {hits}/{total}")
 
     # ---------------------------------------------------- 7. e2e scanned
-    scan4 = os.path.join(tmp, "scan4.pdf")
-    make_scanned_book(scan4, pages=4, seed=SEED)
-    p_gpu, s_gpu, w_gpu = run(scan4, os.path.join(tmp, "s4_gpu"), "cuda")
-    p_cpu, s_cpu, w_cpu = run(scan4, os.path.join(tmp, "s4_cpu"), "cpu")
-    same = [key(s) for s in s_gpu] == [key(s) for s in s_cpu]
-    emit("e2e_scanned_4page", segments=len(s_gpu), cuda_equals_cpu=same,
-         errors=[p_gpu.stats.errors, p_cpu.stats.errors],
-         db_bound=[p_gpu.ocr._db_detector is not None,
-                   p_cpu.ocr._db_detector is not None],
-         wall_s_cuda=w_gpu, wall_s_cpu=w_cpu, **CARD)
-    if (not same or len(s_gpu) != 4 or p_gpu.stats.errors or p_cpu.stats.errors
-            or p_gpu.ocr._db_detector is None):
+    def scanned_pair(pages, seed, label):
+        pdf = os.path.join(tmp, f"{label}.pdf")
+        make_scanned_book(pdf, pages=pages, seed=seed)
+        runs = [run(pdf, os.path.join(tmp, f"{label}_{d}"), d)
+                for d in ("cuda", "cpu")]
+        (p_gpu, s_gpu, w_gpu), (p_cpu, s_cpu, w_cpu) = runs
+        ok = ([key(s) for s in s_gpu] == [key(s) for s in s_cpu]
+              and len(s_gpu) == pages and not p_gpu.stats.errors
+              and not p_cpu.stats.errors and p_gpu.ocr._db_detector is not None)
+        outside, conf_diff, csv_equal = payload_differences(
+            os.path.join(tmp, f"{label}_cuda"), os.path.join(tmp, f"{label}_cpu"))
+        return pdf, ok, outside, conf_diff, csv_equal, dict(
+            segments=len(s_gpu), errors=[p_gpu.stats.errors, p_cpu.stats.errors],
+            db_bound=[p_gpu.ocr._db_detector is not None,
+                      p_cpu.ocr._db_detector is not None],
+            wall_s_cuda=w_gpu, wall_s_cpu=w_cpu)
+
+    # the scanned book the tier-1 test holds to the JAX pipeline
+    # (tests/test_torch_entrypoints.py): the whole JSON under the table
+    _, ok, outside, conf_diff, csv_equal, info = scanned_pair(
+        SCAN2_PAGES_SEED[0], SCAN2_PAGES_SEED[1], "scan2")
+    emit("e2e_scanned_2page", keys_outside_table=len(outside),
+         differing_keys=outside[:20], confidence_max_abs_diff=conf_diff,
+         allowed=table, csv_equal=csv_equal, **info, **CARD)
+    if not ok:
+        return fail("2-page scanned book: cuda and cpu segments differ, "
+                    "errors, or the DB detector never ran")
+    if outside or not csv_equal:
+        return fail(f"2-page scanned book: the cuda and cpu JSON payloads "
+                    f"differ outside the table: {outside[:5]}, csv equal "
+                    f"{csv_equal}")
+    # four other scanned pages: every key but the OCR confidences under the
+    # table; those are printed, and may pass the table's bound where one
+    # frame's greedy choice is a near-tie between blank and a character
+    # (the text is the same, the line's mean moves by 2-3 of 100; PERF.md §7)
+    scan4, ok, outside, conf_diff, csv_equal, info = scanned_pair(4, SEED, "scan4")
+    tail = [k for k in outside if re.fullmatch(CONFIDENCE_PATH, k[0])]
+    other = [k for k in outside if k not in tail]
+    emit("e2e_scanned_4page", keys_outside_table=len(outside),
+         differing_keys=outside[:20], confidences_over_table=len(tail),
+         confidence_max_abs_diff=conf_diff, allowed=table,
+         csv_equal=csv_equal, **info, **CARD)
+    if not ok:
         return fail("4-page scanned book: cuda and cpu segments differ, "
                     "errors, or the DB detector never ran")
+    if other or not csv_equal:
+        return fail(f"4-page scanned book: the cuda and cpu JSON payloads "
+                    f"differ outside the table: {other[:5]}, csv equal "
+                    f"{csv_equal}")
 
     # the scanned path through eval.evaluate_scanned: counters start at 0
     # here and are read right after; its pipeline and DB chunks are recorded
@@ -847,7 +943,7 @@ def main() -> int:
         q = BookQueue(output_root=serve_root,
                       config=PipelineConfig(use_vision_llm=False),
                       llm_client=DisabledClient(), device="cuda")
-        q.add(book4, book_id="book4")
+        q.add(book8, book_id="book8")
         q.add(scan4, book_id="scan4")
         return q.run()
 
@@ -861,7 +957,7 @@ def main() -> int:
                                                "errors", "error")}
                          for k, r in first.items()},
          second_run_skipped=skipped, wall_s=serve_wall, **CARD)
-    if (sorted(first) != ["book4", "scan4"]
+    if (sorted(first) != ["book8", "scan4"]
             or any(r["status"] != "done" or r["errors"] or not r["segments"]
                    for r in first.values())
             or any(r["status"] != "done" for r in second.values()) or not skipped):

@@ -21,6 +21,14 @@ Parity with the flax module (each pinned by a test):
     convs in the compute dtype for inference) and each conv kernel is cast
     to the compute dtype where flax casts it.
 
+Rounding. In bfloat16 the model rounds where XLA rounds flax's model on the
+CPU (its compiled HLO, read op by op with ``scripts/bf16_op_parity.py``):
+a ConvBlock's GroupNorm takes its statistics from the conv's output rounded
+to bfloat16 but normalises the conv's float32 sum, so the block's conv runs
+in float32 on the bfloat16 operands (exact products, float32 sums); the
+upsample resizes rows, rounds, then columns, and rounds; the laterals and
+each merge's sum are rounded as flax writes them.
+
 The convs go to cuDNN, as the JAX package leaves them to XLA. The host
 code (``unshrink_boxes``, the refine knobs, ``_snap_box_to_ink``,
 ``refine_line_boxes`` and DBLineDetector's ``_luma``, ``_views`` and
@@ -64,42 +72,66 @@ DET_OUT_PATH = os.path.join(
 
 
 def group_norm(x: torch.Tensor, groups: int, scale: torch.Tensor,
-               bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """flax ``nn.GroupNorm`` on an NCHW tensor: statistics in at least
-    float32 with the fast variance max(0, E[x²] - E[x]²), the affine in the
-    same dtype, result in x's dtype."""
+               bias: torch.Tensor, eps: float = 1e-6,
+               dtype: torch.dtype = None) -> torch.Tensor:
+    """flax ``nn.GroupNorm`` on an NCHW tensor as XLA computes it:
+    statistics in at least float32 with the fast variance
+    max(0, E[x²] - E[x]²) (the mean as the sum times 1/n), the scale folded
+    into the reciprocal standard deviation, the result in ``dtype`` (default
+    x's). ``x`` may be a conv's float32 sum whose output flax rounds to
+    ``dtype``: the statistics read x rounded to it, the normalisation reads
+    x itself, as XLA keeps the conv's sum unrounded there."""
     B, C, H, W = x.shape
-    xf = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(B, groups, -1)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    y = (xf - mean).reshape(B, C, H, W)
-    mul = torch.rsqrt(var + eps).repeat_interleave(C // groups, dim=1)
+    dtype = x.dtype if dtype is None else dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    xs = x.to(dtype).to(acc).reshape(B, groups, -1)
+    inv = 1.0 / xs.shape[-1]
+    mean = xs.sum(dim=-1, keepdim=True) * inv
+    var = ((xs * xs).sum(dim=-1, keepdim=True) * inv - mean * mean).clamp_min(0.0)
+    k = C // groups
+    mul = torch.rsqrt(var + eps).repeat_interleave(k, dim=1)
     mul = mul.reshape(B, C, 1, 1) * scale.reshape(1, C, 1, 1)
-    return (y * mul + bias.reshape(1, C, 1, 1)).to(x.dtype)
+    y = x.to(acc) - mean.repeat_interleave(k, dim=1).reshape(B, C, 1, 1)
+    return (y * mul + bias.reshape(1, C, 1, 1)).to(dtype)
 
 
-def same_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def same_conv(conv: nn.Conv2d, x: torch.Tensor,
+              out_dtype: torch.dtype = None) -> torch.Tensor:
     """A padding=0 conv with flax 'SAME' padding applied explicitly, its
-    parameters cast to x's dtype as flax casts them to the compute dtype."""
+    parameters cast to x's dtype as flax casts them to the compute dtype.
+    ``out_dtype=torch.float32`` on a bfloat16 x returns the float32 sum of
+    those products unrounded (the conv runs in float32 on x and the kernel
+    as they are in bfloat16, whose products float32 holds exactly), as XLA
+    computes a bfloat16 conv on the CPU before GroupNorm reads it."""
     kh, kw = conv.kernel_size
     sh, sw = conv.stride
     ph = _same_pad(x.shape[2], sh, kh)
     pw = _same_pad(x.shape[3], sw, kw)
+    w = conv.weight.to(x.dtype)
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.conv2d(F.pad(x, (*pw, *ph)), conv.weight.to(x.dtype), bias,
-                    conv.stride)
+    x = F.pad(x, (*pw, *ph))
+    if out_dtype is not None and out_dtype != x.dtype:
+        x, w = x.to(out_dtype), w.to(out_dtype)
+        bias = None if bias is None else bias.to(out_dtype)
+    return F.conv2d(x, w, bias, conv.stride)
 
 
 def upsample_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``jax.image.resize(t, like's H and W, "bilinear")`` for an upsample:
-    half-pixel centres, edge taps clamped (jax drops the out-of-range tap
-    and renormalises, which gives the same value)."""
-    return F.interpolate(t, size=tuple(like.shape[2:]), mode="bilinear",
+    """``jax.image.resize(t, like's H and W, "bilinear")`` for an upsample
+    as XLA computes it: one axis at a time, rows first, each pass rounded to
+    t's dtype. Half-pixel centres, edge taps clamped (jax drops the
+    out-of-range tap and renormalises, which gives the same value)."""
+    h, w = like.shape[2:]
+    rows = F.interpolate(t, size=(h, t.shape[3]), mode="bilinear",
+                         align_corners=False, antialias=False).to(t.dtype)
+    return F.interpolate(rows, size=(h, w), mode="bilinear",
                          align_corners=False, antialias=False).to(t.dtype)
 
 
 class ConvBlock(nn.Module):
-    """3x3 conv (no bias) + GroupNorm + relu, as flax's ConvBlock."""
+    """3x3 conv (no bias) + GroupNorm + relu, as flax's ConvBlock: the conv's
+    sum (float32, or x's dtype if wider) goes to ``group_norm`` unrounded,
+    the result in x's dtype."""
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  param_dtype: torch.dtype = torch.float32):
@@ -111,8 +143,10 @@ class ConvBlock(nn.Module):
         self.gn_bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = same_conv(self.conv, x)
-        return F.relu(group_norm(x, self.groups, self.gn_scale, self.gn_bias))
+        c = same_conv(self.conv, x,
+                      out_dtype=torch.promote_types(x.dtype, torch.float32))
+        return F.relu(group_norm(c, self.groups, self.gn_scale, self.gn_bias,
+                                 dtype=x.dtype))
 
 
 class Detector(nn.Module):

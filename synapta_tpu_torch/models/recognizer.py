@@ -7,19 +7,31 @@ class logits. Input is NCHW float in [0, 1]; output (B, W // 4, classes).
 Parity with the flax module (each pinned by a test):
   - flax ``SAME`` on a stride-2 conv pads (0, 1) on an even axis, so every
     conv pads explicitly (``_same_pad``) and runs with padding=0;
-  - LayerNorm eps is 1e-6; ``nn.gelu`` is the tanh approximation;
-  - attention divides the query by sqrt(head_dim) cast to the compute dtype,
-    written as explicit matmul + softmax;
+  - LayerNorm eps 1e-6 and flax's fast variance max(0, E[x²] - E[x]²);
+    ``nn.gelu`` is the tanh approximation;
+  - attention scales the query by the reciprocal of sqrt(head_dim) cast to
+    the compute dtype, written as explicit matmul + softmax;
   - height collapses by a mean; the head runs in float32 on the trunk output.
 
-The convs and matmuls go to cuDNN/cuBLAS, as the JAX package leaves them to
-XLA. ``dtype`` is the compute dtype of the trunk (bfloat16 in production);
-``param_dtype`` is the dtype the parameters are stored in: float32 for
-training, as flax keeps them, each weight cast to ``dtype`` where flax casts
-it (conv and Dense kernels and biases, ``pos_embed``; LayerNorm computes in
-float32 and casts its result). ``recognizer_from_flax`` stores them in the
-compute dtype for inference, which gives the same values. The head stays
-float32. ``init_params`` draws a fresh model with flax's initialisers.
+Rounding. In a lower compute dtype (bfloat16 in production) the model rounds
+where XLA rounds flax's model on the CPU (its compiled HLO, read op by op
+with ``scripts/bf16_op_parity.py``): after every matmul and conv, again
+after the bias add, and after every elementwise op of a chain (GELU with
+its constants in the compute dtype, the softmax's difference and quotient).
+Three sums stay float32 where XLA keeps them unrounded: each residual sum
+(and the first block's input, the mean plus ``pos_embed``) as LayerNorm
+reads it, while the residual path reads it rounded; and the softmax's
+exponentials as its denominator sums them. ``_wide`` marks those sums;
+in float32 it and every rounding are no-ops.
+
+The convs and matmuls go to cuDNN/cuBLAS in the compute dtype, as the JAX
+package leaves them to XLA. ``param_dtype`` is the dtype the parameters are
+stored in: float32 for training, as flax keeps them, each weight cast to
+``dtype`` where flax casts it (conv and Dense kernels and biases,
+``pos_embed``). ``recognizer_from_flax`` stores those in the compute dtype
+for inference, which gives the same values. LayerNorm's scale and bias and
+the head stay float32 in every model, as flax reads them. ``init_params``
+draws a fresh model with flax's initialisers.
 """
 from __future__ import annotations
 
@@ -41,38 +53,74 @@ def _same_pad(n: int, stride: int, k: int = 3):
     return total // 2, total - total // 2
 
 
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """flax's LayerNorm: with float32 parameters and a lower compute dtype,
-    statistics and affine in float32 and the result cast to x's dtype (torch
-    takes no such mix on CUDA); with parameters in x's dtype, torch's own."""
-    if ln.weight.dtype == x.dtype:
-        return ln(x)
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                        ln.bias.float(), ln.eps).to(x.dtype)
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or in its own dtype if that is wider."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """flax's LayerNorm as XLA computes it: mean and fast variance
+    max(0, E[x²] - E[x]²) in float32, the scale folded into the reciprocal
+    standard deviation, the result rounded to ``dtype``. ``x`` may be the
+    float32 sum that XLA hands LayerNorm unrounded."""
+    xf = _wide(x)
+    inv = 1.0 / x.shape[-1]
+    mean = xf.sum(-1, keepdim=True) * inv
+    var = ((xf * xf).sum(-1, keepdim=True) * inv - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + ln.eps) * ln.weight.to(xf.dtype)
+    return ((xf - mean) * mul + ln.bias.to(xf.dtype)).to(dtype)
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """A Linear with its parameters cast to x's dtype, as flax's Dense casts
-    them to its compute dtype. A layer whose kernel is cut over the 'model'
-    axis (``model_axis``, set by parallel/mesh.py::shard_params) computes its
-    rank's output columns, gathers all ranks' and then adds the whole bias."""
+    """flax's Dense in x's dtype: the product rounded to it, then the bias
+    (cast to it) added and the sum rounded again, as XLA computes it. A
+    layer whose kernel is cut over the 'model' axis (``model_axis``, set by
+    parallel/mesh.py::shard_params) computes its rank's output columns and
+    gathers all ranks' before the same bias add."""
     axis = getattr(lin, "model_axis", None)
     if axis is not None:
-        return axis.column(lambda h: F.linear(h, lin.weight.to(h.dtype)),
-                           x, -1) + lin.bias.to(x.dtype)
-    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+        y = axis.column(lambda h: F.linear(h, lin.weight.to(h.dtype)), x, -1)
+    else:
+        y = F.linear(x, lin.weight.to(x.dtype))
+    return y + lin.bias.to(x.dtype)
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A padding-free conv with its parameters cast to x's dtype; cut over
-    the 'model' axis as ``_dense`` is (output channels gathered)."""
+    """A padding-free conv in x's dtype, its bias added after the product
+    is rounded, as ``_dense``; cut over the 'model' axis as ``_dense`` is
+    (output channels gathered)."""
     axis = getattr(conv, "model_axis", None)
     if axis is not None:
-        return axis.column(
+        y = axis.column(
             lambda h: F.conv2d(h, conv.weight.to(h.dtype), None, conv.stride),
-            x, 1) + conv.bias.to(x.dtype).view(1, -1, 1, 1)
-    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype),
-                    conv.stride)
+            x, 1)
+    else:
+        y = F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride)
+    return y + conv.bias.to(x.dtype).view(1, -1, 1, 1)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` op by op in x's dtype, each result
+    rounded to it and both constants cast to it, as XLA computes it."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype, device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """flax's dot-product attention on (B, heads, T, hd) in q's dtype: the
+    query times the float32 reciprocal of ``scale`` (the square root of hd,
+    cast to q's dtype), scores, softmax, weighted values. The softmax rounds
+    the difference to the row maximum and the quotient, and sums the
+    exponentials unrounded, as XLA computes ``jax.nn.softmax``."""
+    dtype = q.dtype
+    q = (_wide(q) * (1.0 / _wide(scale))).to(dtype)
+    s = q @ k.transpose(-1, -2)
+    e = torch.exp(_wide(s - s.amax(dim=-1, keepdim=True)))
+    w = e.to(dtype) / e.sum(dim=-1, keepdim=True).to(dtype)
+    return w @ v
 
 
 # The standard deviation of a unit normal truncated to [-2, 2]: flax's
@@ -113,33 +161,40 @@ class EncoderBlock(nn.Module):
         kw = dict(dtype=param_dtype)
         self.heads = heads
         self.dtype = dtype
-        self.ln0 = nn.LayerNorm(dim, eps=1e-6, **kw)
+        # LayerNorm's scale and bias stay float32, as flax keeps and reads them
+        self.ln0 = nn.LayerNorm(dim, eps=1e-6, dtype=torch.float32)
         self.query = nn.Linear(dim, dim, **kw)
         self.key = nn.Linear(dim, dim, **kw)
         self.value = nn.Linear(dim, dim, **kw)
         self.out = nn.Linear(dim, dim, **kw)
-        self.ln1 = nn.LayerNorm(dim, eps=1e-6, **kw)
+        self.ln1 = nn.LayerNorm(dim, eps=1e-6, dtype=torch.float32)
         self.fc0 = nn.Linear(dim, dim * mlp_ratio, **kw)
         self.fc1 = nn.Linear(dim * mlp_ratio, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, D)
-        B, T, D = x.shape
+    def attend(self, h: torch.Tensor) -> torch.Tensor:
+        """flax's MultiHeadDotProductAttention(h, h) in h's dtype."""
+        B, T, D = h.shape
         hd = D // self.heads
-        h = _layer_norm(self.ln0, x)
 
         def split(t):  # (B, T, D) -> (B, heads, T, hd)
             return t.view(B, T, self.heads, hd).transpose(1, 2)
 
-        scale = torch.tensor(math.sqrt(hd), dtype=self.dtype, device=x.device)
-        q = split(_dense(self.query, h)) / scale
-        k = split(_dense(self.key, h))
-        v = split(_dense(self.value, h))
-        w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
-        a = (w @ v).transpose(1, 2).reshape(B, T, D)
-        x = x + _dense(self.out, a)
-        h = _dense(self.fc1, F.gelu(_dense(self.fc0, _layer_norm(self.ln1, x)),
-                                    approximate="tanh"))
-        return x + h
+        scale = torch.tensor(math.sqrt(hd), dtype=h.dtype, device=h.device)
+        a = attention_core(split(_dense(self.query, h)),
+                           split(_dense(self.key, h)),
+                           split(_dense(self.value, h)), scale)
+        return _dense(self.out, a.transpose(1, 2).reshape(B, T, D))
+
+    def forward(self, s: torch.Tensor) -> torch.Tensor:  # (B, T, D)
+        """``s`` is the block's input as a float32 sum (or already in the
+        compute dtype): LayerNorm reads it whole, the residual path rounded
+        to the compute dtype. Returns the block's output sum the same way."""
+        dtype = self.dtype
+        a = self.attend(_layer_norm(self.ln0, s, dtype))
+        x = _wide(s.to(dtype)) + _wide(a)
+        h = _dense(self.fc0, _layer_norm(self.ln1, x, dtype))
+        h = _dense(self.fc1, gelu_tanh(h))
+        return _wide(x.to(dtype)) + _wide(h)
 
 
 class Recognizer(nn.Module):
@@ -161,8 +216,14 @@ class Recognizer(nn.Module):
             EncoderBlock(dim, dtype=dtype, param_dtype=param_dtype)
             for _ in range(blocks)
         )
-        self.norm = nn.LayerNorm(dim, eps=1e-6, **kw)
+        self.norm = nn.LayerNorm(dim, eps=1e-6, dtype=torch.float32)
         self.head = nn.Linear(dim, num_classes, dtype=torch.float32)
+
+    def collapse(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, dim, H, T) conv output -> (B, T, dim) float32 sum of its
+        height mean (rounded) and ``pos_embed`` (cast to the compute dtype)."""
+        m = (_wide(x).sum(dim=2) * (1.0 / x.shape[2])).to(self.dtype)
+        return _wide(m.transpose(1, 2)) + _wide(self.pos_embed.to(self.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, 1, 32, W)
         x = x.to(self.dtype)
@@ -170,12 +231,11 @@ class Recognizer(nn.Module):
             ph = _same_pad(x.shape[2], sh)
             pw = _same_pad(x.shape[3], sw)
             x = F.relu(_conv(conv, F.pad(x, (*pw, *ph))))
-        x = x.mean(dim=2).transpose(1, 2)  # collapse height -> (B, T, dim)
-        x = x + self.pos_embed.to(self.dtype)
+        s = self.collapse(x)
         for blk in self.blocks:
-            x = blk(x)
-        x = _layer_norm(self.norm, x)
-        return _dense(self.head, x.to(torch.float32))
+            s = blk(s)
+        h = _layer_norm(self.norm, s, self.dtype)
+        return _dense(self.head, h.to(torch.float32))
 
 
 def params_from_flax(tree) -> Dict[str, torch.Tensor]:
@@ -298,8 +358,8 @@ def init_params(model: Recognizer, generator: torch.Generator) -> Recognizer:
 def recognizer_from_flax(tree, dtype: torch.dtype = torch.bfloat16,
                          device="cuda") -> Recognizer:
     """Build a Recognizer whose shape follows the flax tree, load it with its
-    parameters stored in ``dtype`` (inference), and put it in eval mode on
-    ``device``."""
+    conv and Dense parameters and ``pos_embed`` stored in ``dtype``
+    (inference), and put it in eval mode on ``device``."""
     sd = params_from_flax(tree)
     _, seq_len, dim = sd["pos_embed"].shape
     blocks = sum(1 for k in tree if k.startswith("EncoderBlock_"))

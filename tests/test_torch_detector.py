@@ -12,9 +12,10 @@ port's counterpart, on the CPU:
 - the post stage (threshold -> closing -> CC -> stats -> boxes) given the
   same logit map: exactly equal to JAX's ``_boxes_device`` stage;
 - ``DBLineDetector.detect_lines`` in bfloat16 on scanned canvases (the
-  canvas path) and on a native-resolution crop (1.05 < ratio <= 2): >= 90%
-  of the boxes matched at IoU >= 0.9 (measured: 37 of 38 boxes equal on
-  two scanned canvases).
+  canvas path): every box equal to JAX's but the knife-edge line of
+  tests/test_torch_entrypoints.py::KNIFE_EDGE, which may end a pixel higher
+  (measured: 37 of 38 equal); on a native-resolution crop (1.05 < ratio
+  <= 2): >= 90% of the boxes matched at IoU >= 0.9.
 """
 import tempfile
 
@@ -29,6 +30,10 @@ import flax.linen as fnn
 from synapta_tpu.models import detector as jdet
 from synapta_tpu_torch.eval import _box_iou
 from synapta_tpu_torch.models import detector as tdet
+
+from torchfixtures import pin_threads
+
+pin_threads()
 
 LOGIT_03 = float(np.log(0.3 / 0.7))  # the probability threshold as a logit
 
@@ -214,15 +219,22 @@ def detectors():
 
 
 def test_detect_lines_scanned_canvas(detectors, scanned):
-    """Scanned pages (ratio ~2.7) take the canvas path: one view a crop."""
+    """Scanned pages (ratio ~2.7) take the canvas path: one view a crop.
+    Both bf16 models round alike op by op; the first line of page 1 has its
+    lowest row on the threshold, so its box may end at y 32 against JAX's
+    33. Every other box is equal."""
     jd, td = detectors
     canvases, ctxs = scanned
     assert all(c is not None and c[1] > 2.0 for c in ctxs)
     want = jd.detect_lines(canvases, hires=ctxs)
     got = td.detect_lines(canvases, hires=ctxs)
-    for w, g in zip(want, got):
-        assert len(w) >= 15
-        assert _matched_share(w, g) >= 0.9, (w, g)
+    assert [len(w) for w in want] == [len(g) for g in got]
+    assert all(len(w) >= 15 for w in want)
+    differ = [(w, g) for ws, gs in zip(want, got) for w, g in zip(ws, gs)
+              if w != g]
+    assert len(differ) <= 1, differ
+    for w, g in differ:
+        assert w == want[0][0] and w[:3] == g[:3] and w[3] - g[3] == 1, differ
 
 
 def test_detect_lines_native_path(detectors):

@@ -40,6 +40,10 @@ from synapta_tpu_torch.models import optim
 
 from test_torch_train import assert_trees_equal, keys, leaves, np_tree
 
+from torchfixtures import pin_threads
+
+pin_threads()
+
 
 def _flax_params(seed=0, size=64, dtype=jnp.float32):
     return np_tree(jdet.Detector(dtype=dtype).init(

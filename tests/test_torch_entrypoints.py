@@ -1,11 +1,15 @@
 """The port's scanned-page path and its entry points vs the JAX package, on
 the CPU.
 
-- A 1-page scanned book (make_scanned_book, the DB detector's route under
-  the default ``line_detector="auto"``) through the port and through the
-  JAX pipeline: identical segment ids, pages, bboxes, types, captions and
-  figure numbers; both CERs <= 0.025, the JAX package's bar
-  (tests/test_detector.py; measured here: port 0.0037, JAX 0.0022).
+- ``make_scanned_book(pages=2, seed=2)`` (the DB detector's route under the
+  default ``line_detector="auto"``; the scanned fixture of
+  tests/test_torch_detector.py) through the port and through the JAX
+  pipeline: identical segment ids, pages, bboxes, types, captions and figure
+  numbers; both CERs <= 0.025, the JAX package's bar
+  (tests/test_detector.py); and the two runs' ``*_visual_segments.json`` and
+  ``*_visual_summary.csv`` equal key by key and cell by cell, apart from the
+  entries of ``chip_smoke.ALLOWED_DIFFERENCES`` and from ``KNIFE_EDGE``, the
+  one text line whose box the two DB detectors draw a pixel apart.
 - ``eval.evaluate_scanned`` and ``eval.evaluate_book``: the same detection
   counts and the same CERs as JAX (measured here: scanned 0.0037 on both,
   book 0.0 on both), the scanned one within the bar.
@@ -15,11 +19,14 @@ the CPU.
 - ``python -m synapta_tpu_torch.eval`` and ``.serve`` run with
   ``--device cpu``.
 """
+import csv
 import json
 import os
+import re
 
 import pytest
 
+from chip_smoke import allowed_difference, json_differences
 from synapta_tpu.config import PipelineConfig as JaxPipelineConfig
 from synapta_tpu.io.pdf_writer import make_scanned_book, make_test_book
 from synapta_tpu.llm.fake import DisabledClient as JaxDisabledClient
@@ -27,7 +34,24 @@ from synapta_tpu_torch.config import PipelineConfig
 from synapta_tpu_torch.eval import cer, norm_text
 from synapta_tpu_torch.llm.fake import DisabledClient
 
+from torchfixtures import pin_threads
+
+pin_threads()
+
 CER_BAR = 0.025  # tests/test_detector.py::test_db_routes_scanned_fixture
+
+# The one difference left on this book: the first text line of page 1,
+# whose box the port's DB detector ends at y 32 and JAX's at 33 (and the
+# text read from that tile: "the  wi" against "the ∑ wi"). Both detectors
+# round alike, op by op (scripts/bf16_op_parity.py: 0 to a few hundred of
+# 10⁶ elements an op differ, by one bf16 step, from float32 sums taken in
+# other orders; from XLA's conv sums in XLA's order, 0 to 28). The line's
+# lowest row of the probability map lies on the threshold: its pixels fall
+# on other sides in each of the four maps (JAX and the port, bf16 and
+# float32), and only the port's bf16 map ends the box at 32. The row may
+# come out either way; nothing else may differ.
+KNIFE_EDGE = (r"segments\[0\]\.(ocr_result\.(blocks\[0\]\.(bbox\[3\]|text|confidence)"
+              r"|raw_text)|extracted_text_structured\.annotations\[0\])")
 
 
 def _seg_key(s):
@@ -40,7 +64,7 @@ def _seg_key(s):
 def scanned_runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_scan")
     pdf = str(d / "scan.pdf")
-    _, expected = make_scanned_book(pdf, pages=1, seed=2)
+    _, expected = make_scanned_book(pdf, pages=2, seed=2)
     from synapta_tpu_torch.pipeline import VisualSegmentationPipeline as TorchPipe
 
     tp = TorchPipe("scan", pdf, output_dir=str(d / "torch"), use_mermaid=False,
@@ -55,24 +79,52 @@ def scanned_runs(tmp_path_factory):
                  llm_client=JaxDisabledClient(), resume=False)
     j_segs = jp.process()
     jp.close()
-    return expected, tp, t_segs, jp, j_segs
+    return expected, tp, t_segs, jp, j_segs, d
 
 
 def test_scanned_segments_identical(scanned_runs):
-    _, tp, t_segs, jp, j_segs = scanned_runs
+    _, tp, t_segs, jp, j_segs, _ = scanned_runs
     assert tp.stats.errors == 0 and jp.stats.errors == 0
     assert tp.cfg.ocr.line_detector == "auto"  # the production default
     assert tp.ocr._db_detector is not None, "DB detector never selected"
-    assert len(t_segs) == 1
+    assert len(t_segs) == 2
     assert [_seg_key(s) for s in t_segs] == [_seg_key(s) for s in j_segs]
 
 
+def test_scanned_json_and_csv_equal_the_jax_pipelines(scanned_runs):
+    """The whole payloads the two runs wrote, read back from disk."""
+    d = scanned_runs[-1]
+    outs = [d / "torch", d / "jax"]
+    t_json, j_json = (json.load(open(o / "scan_visual_segments.json")) for o in outs)
+    assert t_json["total_segments"] == j_json["total_segments"] == 2
+    assert sum(len(s["ocr_result"]["blocks"]) for s in t_json["segments"]) >= 30
+    faults, edge = [], []
+    for path, a, b in json_differences(t_json, j_json):
+        if allowed_difference(path, a, b) is not None:
+            continue
+        (edge if re.fullmatch(KNIFE_EDGE, path) else faults).append((path, a, b))
+    assert not faults, faults
+    if edge:  # the box is a pixel short at the bottom and nothing else
+        t_box, j_box = (j["segments"][0]["ocr_result"]["blocks"][0]["bbox"]
+                        for j in (t_json, j_json))
+        assert t_box[:3] == j_box[:3] and abs(t_box[3] - j_box[3]) == 1, edge
+    t_csv, j_csv = (list(csv.reader(open(o / "scan_visual_summary.csv", newline="")))
+                    for o in outs)
+    assert len(t_csv) == len(j_csv) == 3
+    text_col = t_csv[0].index("ocr_text")
+    for r, (t_row, j_row) in enumerate(zip(t_csv, j_csv)):
+        for c, (a, b) in enumerate(zip(t_row, j_row)):
+            # the knife-edge line's text reaches the first segment's text cell
+            assert a == b or (edge and r == 1 and c == text_col), (r, c, a, b)
+
+
 def test_scanned_cer_both_under_bar(scanned_runs):
-    expected, _, t_segs, _, j_segs = scanned_runs
-    ref = norm_text(expected[0].replace("\n", " "))
-    for segs in (t_segs, j_segs):
-        hyp = norm_text(segs[0].ocr_result.raw_text.replace("\n", " "))
-        assert cer(ref, hyp) <= CER_BAR
+    expected, _, t_segs, _, j_segs, _ = scanned_runs
+    for page, truth in enumerate(expected):
+        ref = norm_text(truth.replace("\n", " "))
+        for segs in (t_segs, j_segs):
+            hyp = norm_text(segs[page].ocr_result.raw_text.replace("\n", " "))
+            assert cer(ref, hyp) <= CER_BAR
 
 
 def test_evaluate_scanned_matches_jax():

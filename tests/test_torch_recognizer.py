@@ -6,8 +6,10 @@
   1e-4 (logits), and each parity hazard is pinned on its own;
 - the shipped weights in bfloat16 on real line tiles decode to the same
   strings as flax in bfloat16 for >= 95% of tiles (measured on the CPU:
-  62 of the 64 tiles of this fixture, 96.9%; bf16 rounds at other places
-  in XLA and in PyTorch).
+  64 of the 64 tiles of this fixture; 62 before the port rounded where XLA
+  rounds);
+- a layer cut over a one-rank 'model' axis equals the unsharded layer in
+  bfloat16, bit for bit.
 """
 import os
 
@@ -137,6 +139,39 @@ def test_encoder_block_hazards_match_flax():
     with torch.no_grad():
         got = blk(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_model_axis_one_rank_equals_unsharded_bf16():
+    """A layer cut over a 'model' axis (parallel/mesh.py::ModelAxis) gathers
+    its ranks' columns and then adds the bias, as the unsharded layer adds
+    it: in bfloat16 both round the product, then the sum. Over one gloo rank
+    every conv and Dense of a small model, and so the logits, equal the
+    unsharded model's bit for bit."""
+    import torch.distributed as dist
+
+    from synapta_tpu_torch.parallel.mesh import ModelAxis
+
+    _, tree = _small_flax(width=64)
+    tm = trec.recognizer_from_flax(tree, dtype=torch.bfloat16, device="cpu")
+    x = torch.from_numpy(
+        np.random.default_rng(5).random((2, 1, 32, 64)).astype(np.float32))
+    layers = trec.kernel_modules(tm)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with torch.no_grad():
+            want = tm(x)
+            h = torch.from_numpy(np.random.default_rng(6).normal(
+                0, 1, (2, 16, 32)).astype(np.float32)).to(torch.bfloat16)
+            plain = trec._dense(tm.blocks[0].query, h)
+            for layer in layers.values():
+                layer.model_axis = ModelAxis(dist.group.WORLD)
+            got = tm(x)
+            cut = trec._dense(tm.blocks[0].query, h)
+    finally:
+        dist.destroy_process_group()
+    assert plain.dtype == torch.bfloat16 and torch.equal(cut, plain)
+    assert torch.equal(got, want)
 
 
 def test_head_runs_float32_on_bf16_trunk():

@@ -39,6 +39,10 @@ from synapta_tpu_torch.models import recognizer as trec
 from synapta_tpu_torch.models import synthdata as tsd
 from synapta_tpu_torch.models import train as ttrain
 
+from torchfixtures import pin_threads
+
+pin_threads()
+
 
 def np_tree(x):
     """A flax tree as nested dicts of numpy arrays, keys in their order."""

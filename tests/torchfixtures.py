@@ -7,6 +7,20 @@ their analyze pass; random inputs come from numpy with fixed seeds.
 import functools
 
 import numpy as np
+import torch
+
+
+def pin_threads() -> None:
+    """One intra-op torch thread in this test process. The tier-1 run puts
+    six pytest-xdist workers on the host's cores; torch's default of a
+    thread per core in each of them oversubscribes the host (one 101-step
+    CPU training run of the recognizer: 13 s alone, over 900 s six at a
+    time; one thread each: 19-22 s six at a time). It also fixes the order
+    of the port's float32 CPU sums, which the thread count sets."""
+    torch.set_num_threads(1)
+
+
+pin_threads()
 
 
 @functools.lru_cache(maxsize=4)
