@@ -24,10 +24,23 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   default line_detector="auto"): the 2-page scanned book of the tier-1 test
   on the GPU and on the CPU (the whole JSON and CSV, as the 8-page book's),
   a 4-page one (the same, but OCR confidences are printed, not bounded) and
-  a 16-page one through eval.evaluate_scanned (0 errors, CER <= 0.025); ``DBLineDetector.detect_lines`` on a drawn crop
-  that takes the native-resolution path (2 x 2 views of 512², ``db_native``);
+  a 16-page one through eval.evaluate_scanned (0 errors, CER <= 0.025);
+  ``DBLineDetector.detect_lines`` on a drawn crop that takes the
+  native-resolution path (2 x 2 views of 512², ``db_native``);
 - serve.BookQueue(device="cuda") over a test book and a scanned book: both
   done with 0 errors, and a second run skips both;
+- ``python -m synapta_tpu_torch.bench`` at 64 pages and 2 reps in a process
+  of its own (its last line, no errors, the two reps' JSON the same under
+  the table, ``bench_small``); the vision LLM on, the 8-page book with a
+  fake client that answers after 0.2 s (every analysis patched in late), the
+  GPU against the CPU under the table, beside the GPU's LLM-off wall
+  (``llm_on``); the pixels handed to the client unchanged while 12 pages in
+  batches of 2 recycle the loader's canvas ring (``llm_ring``); resume from
+  the JSONL checkpoint, the second and third runs writing no segment
+  (``resume``); Pillow's image-per-page book (whole-page rasters through the
+  DB detector) and a /Rotate 90 scan, the GPU against the CPU under the
+  table (``foreign_books``; the matplotlib and fontTools books run in the
+  tier-1 tests only);
 - training, which launches no kernel of the port's own (cuDNN, cuBLAS and
   torch's CTC loss): three optimiser steps of each trainer in float32 on
   the GPU against the CPU from the same parameters and batches, and the
@@ -53,8 +66,9 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   (``dryrun``) and the ``graft_entry.entry()`` forward (``entry``).
 
 Kernel launch counters are set to 0 just before each of the 64-page, the
-16-page scanned and the 2-shard 64-page runs and read just after, with the
-route of every edge-stats launch (all must be the default route's). Every
+16-page scanned, the LLM-on 8-page, the two foreign books' and the 2-shard
+64-page runs and read just after, with the route of every edge-stats launch
+(all must be the default route's). Every
 phase prints one JSON line; any failure exits nonzero. The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
@@ -122,6 +136,12 @@ DET_STEPS = 60   # batch 8 at 512²; more than the schedule's 50 warmup steps
 # (recognizer, 372 -> 74) and 0.228 (detector, 5.61 -> 1.28).
 REC_LOSS_DROP_MAX = 0.5
 DET_LOSS_DROP_MAX = 0.5
+# python -m synapta_tpu_torch.bench at (pages, reps), and its last line's keys
+BENCH_SMALL = (64, 2)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "runs", "spread"}
+# seconds a call of the delayed fake vision LLM (the 8-page book's eight
+# segments are built in ~0.05 s, so every analysis lands as a late patch)
+LLM_DELAY_S = 0.2
 
 
 def bound(nbytes: float, ops: float):
@@ -360,6 +380,91 @@ def allowed_difference(path: str, a, b):
     return None
 
 
+def payload(out: str, book_id: str = "smoke") -> dict:
+    """A run's ``{book_id}_visual_segments.json``, read back from disk."""
+    with open(os.path.join(out, f"{book_id}_visual_segments.json")) as f:
+        return json.load(f)
+
+
+def payload_differences(out_a: str, out_b: str, book_id: str = "smoke"):
+    """The keys of two runs' segment JSON outside ALLOWED_DIFFERENCES, the
+    largest confidence differences (a text line's, 0..100, and a segment's
+    mean, 0..1) and whether the summary CSVs are equal."""
+    conf = {"block": 0.0, "mean": 0.0}
+    outside = []
+    for path, a, b in json_differences(payload(out_a, book_id),
+                                       payload(out_b, book_id)):
+        if (path.endswith(".confidence") and ".ocr_result." in path
+                and isinstance(a, float) and isinstance(b, float)):
+            kind = "block" if ".blocks[" in path else "mean"
+            conf[kind] = max(conf[kind], abs(a - b))
+        if allowed_difference(path, a, b) is None:
+            outside.append([path, a, b])
+    csvs = []
+    for out in (out_a, out_b):
+        with open(os.path.join(out, f"{book_id}_visual_summary.csv")) as f:
+            csvs.append(f.read())
+    return outside, conf, csvs[0] == csvs[1]
+
+
+def helper_module(name: str):
+    """A jax-free helper module of the repo's tests/, loaded from its file:
+    the directory is no package, and a ``tests`` package installed on the
+    machine would take its place under ``import tests.<name>``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"_tests_{name}", os.path.join(HERE, "tests", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def rotated_scan_pdf(path: str) -> None:
+    """The rotated scan of tests/test_pipeline.py::
+    test_rotated_scanned_page_end_to_end: a 100 x 140 RGB image stored
+    landscape and drawn sideways on a 792 x 612 page with /Rotate 90, so it
+    displays portrait as an upright 300 x 400 region at (156, 196, 456, 596)
+    of 612 x 792."""
+    import zlib
+
+    import numpy as np
+
+    _pdf = helper_module("fontfixtures")._pdf
+
+    H, W = 140, 100
+    img = np.full((H, W, 3), 235, np.uint8)
+    img[10:60, 10:90] = [40, 80, 160]
+    rng = np.random.RandomState(7)
+    img[10:60, 10:90] += rng.randint(0, 60, (50, 80, 3)).astype(np.uint8)
+    img[80:130, 20:80] = 30
+    raw = zlib.compress(img.tobytes())
+    content = b"q 0 -300 400 0 196 456 cm /Im1 Do Q"
+    pdf = _pdf([
+        b"<< /Type /Catalog /Pages 2 0 R >>",
+        b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+        b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 792 612] "
+        b"/Rotate 90 /Contents 4 0 R /Resources "
+        b"<< /XObject << /Im1 5 0 R >> >> >>",
+        b"<< /Length " + str(len(content)).encode() +
+        b" >>\nstream\n" + content + b"\nendstream",
+        b"<< /Type /XObject /Subtype /Image /Width " + str(W).encode() +
+        b" /Height " + str(H).encode() +
+        b" /ColorSpace /DeviceRGB /BitsPerComponent 8 "
+        b"/Filter /FlateDecode /Length " + str(len(raw)).encode() +
+        b" >>\nstream\n" + raw + b"\nendstream",
+    ])
+    with open(path, "wb") as f:
+        f.write(pdf)
+
+
+def modules_found(*names) -> dict:
+    """Whether each Python module can be imported here (none is imported)."""
+    import importlib.util
+
+    return {name: importlib.util.find_spec(name) is not None for name in names}
+
+
 def headers_found(*names) -> dict:
     """Whether ``g++ -E`` finds each C header (nothing is built)."""
     found = {}
@@ -390,22 +495,17 @@ def main() -> int:
     import numpy as np
 
     # ------------------------------------------------------------ 0. env
-    try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        ).stdout.strip().splitlines()
-    except (OSError, subprocess.SubprocessError):
-        smi = []
-    smi_line = smi[0] if smi else "unknown, unknown"
+    from synapta_tpu_torch.bench import card_line
+
+    smi_line = card_line(torch.device("cuda"))
     device_name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     CARD.update(card=smi_line)
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=device_name, capability=list(cap), count=torch.cuda.device_count(),
          python=sys.version.split()[0],
-         headers=headers_found("jpeglib.h", "zlib.h"), **CARD)
+         headers=headers_found("jpeglib.h", "zlib.h"),
+         modules=modules_found("matplotlib", "fontTools"), **CARD)
     if cap != (9, 0):
         return fail(f"needs compute capability 9.0 (Hopper), got {cap}")
     dev = torch.device("cuda")
@@ -693,11 +793,14 @@ def main() -> int:
     from synapta_tpu_torch.utils.profiler import TIMERS
     from synapta_tpu_torch.pipeline import VisualSegmentationPipeline
 
-    def run(pdf, out, device, mesh=None):
+    def run(pdf, out, device, mesh=None, config=None, llm_client=None,
+            use_mermaid=False, resume=False):
         pipe = VisualSegmentationPipeline(
-            book_id="smoke", pdf_path=pdf, output_dir=out, use_mermaid=False,
-            config=PipelineConfig(use_vision_llm=False),
-            llm_client=DisabledClient(), resume=False, device=device,
+            book_id="smoke", pdf_path=pdf, output_dir=out,
+            use_mermaid=use_mermaid,
+            config=config or PipelineConfig(use_vision_llm=False),
+            llm_client=llm_client or DisabledClient(), resume=resume,
+            device=device,
         )
         pipe.mesh = mesh  # None: the pipeline builds its own
         t = time.perf_counter()
@@ -711,10 +814,6 @@ def main() -> int:
         b = s.bbox
         return (s.segment_id, s.page_no, (b.x0, b.y0, b.x1, b.y1),
                 str(s.segment_type), s.caption_text)
-
-    def payload(out):
-        with open(os.path.join(out, "smoke_visual_segments.json")) as f:
-            return json.load(f)
 
     # the route of every edge-stats launch from here on, beside the count
     routes_seen = []
@@ -735,25 +834,6 @@ def main() -> int:
         if seen != ["default"] * n:
             return None
         return {"route": "default", "launches": n}
-
-    def payload_differences(out_a, out_b):
-        """The keys of two runs' segment JSON outside ALLOWED_DIFFERENCES,
-        the largest confidence differences (a text line's, 0..100, and a
-        segment's mean, 0..1) and whether the summary CSVs are equal."""
-        conf = {"block": 0.0, "mean": 0.0}
-        outside = []
-        for path, a, b in json_differences(payload(out_a), payload(out_b)):
-            if (path.endswith(".confidence") and ".ocr_result." in path
-                    and isinstance(a, float) and isinstance(b, float)):
-                kind = "block" if ".blocks[" in path else "mean"
-                conf[kind] = max(conf[kind], abs(a - b))
-            if allowed_difference(path, a, b) is None:
-                outside.append([path, a, b])
-        csvs = []
-        for out in (out_a, out_b):
-            with open(os.path.join(out, "smoke_visual_summary.csv")) as f:
-                csvs.append(f.read())
-        return outside, conf, csvs[0] == csvs[1]
 
     table = {pattern: tol for pattern, _, tol, _ in ALLOWED_DIFFERENCES}
     book8 = os.path.join(tmp, "book8.pdf")
@@ -962,6 +1042,197 @@ def main() -> int:
                    for r in first.values())
             or any(r["status"] != "done" for r in second.values()) or not skipped):
         return fail("serve: a book not done, with errors, or re-run")
+
+    # ------------------------------------------------ 8b. bench, LLM, books
+    # python -m synapta_tpu_torch.bench at 64 pages and 2 reps, in a process
+    # of its own (it loads the library built above): its contract line, no
+    # errors, and the two reps' segment JSON the same under the table
+    t = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "synapta_tpu_torch.bench", "--device", "cuda"],
+        cwd=HERE, capture_output=True, text=True, timeout=900,
+        env=dict(os.environ, SYNAPTA_BENCH_PAGES=str(BENCH_SMALL[0]),
+                 SYNAPTA_BENCH_RUNS=str(BENCH_SMALL[1])))
+    lines = res.stdout.strip().splitlines()
+    reps = [json.loads(ln) for ln in lines if ln.startswith('{"rep"')]
+    try:
+        summary = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        summary = None
+    outside, conf_diff, csv_equal = ([], {}, False) if len(reps) < 2 else (
+        payload_differences(reps[0]["out"], reps[-1]["out"], "textbook_001"))
+    emit("bench_small", rc=res.returncode, pages=BENCH_SMALL[0],
+         card_line=lines[0] if lines else None, summary=summary,
+         reps=[{k: r[k] for k in ("pages_per_s", "wall_s", "segments", "errors")}
+               for r in reps],
+         keys_outside_table=len(outside), differing_keys=outside[:20],
+         confidence_max_abs_diff=conf_diff, csv_equal=csv_equal,
+         stderr_tail=res.stderr[-2000:] if res.returncode else "",
+         wall_s=time.perf_counter() - t, **CARD)
+    if (res.returncode or summary is None or set(summary) != BENCH_KEYS
+            or summary["unit"] != "pages/s" or len(reps) != BENCH_SMALL[1]):
+        return fail(f"bench: rc {res.returncode}, last line {summary}, "
+                    f"{len(reps)} rep lines")
+    if outside or not csv_equal:
+        return fail(f"bench: the two reps' JSON differ outside the table: "
+                    f"{outside[:5]}, csv equal {csv_equal}")
+
+    # the vision LLM on: the 8-page book with a delayed fake client (every
+    # analysis lands late, through writer.update()), the card against the CPU;
+    # counters start at 0 before the card's LLM-on run and are read after it
+    from synapta_tpu_torch.bench import DelayedFakeClient
+    from synapta_tpu_torch.llm.fake import FakePixtralClient
+
+    t = time.perf_counter()
+    _, _, w_off = run(book8, os.path.join(tmp, "llm_off"), "cuda", use_mermaid=True)
+    llm = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            connected_components_cuda.launches = 0
+            fused_edge_stats_cuda.launches = 0
+            del routes_seen[:]
+        client = DelayedFakeClient(LLM_DELAY_S, workers=16)
+        p_llm, s_llm, w_llm = run(book8, os.path.join(tmp, f"llm_{device}"), device,
+                                  llm_client=client, use_mermaid=True)
+        client.shutdown()
+        if device == "cuda":
+            llm_launches = {"cc": connected_components_cuda.launches,
+                            "edge_stats": fused_edge_stats_cuda.launches}
+            edge_by_path["book8_llm_on"] = edge_launches()
+        methods = {s["classification_method"] for s in payload(
+            os.path.join(tmp, f"llm_{device}"))["segments"]}
+        llm[device] = {"segments": len(s_llm), "errors": p_llm.stats.errors,
+                       "llm_patches": p_llm.stats.llm_patches,
+                       "llm_unpatched": p_llm.stats.llm_unpatched,
+                       "llm_drain_wait_s": p_llm.stats.llm_drain_wait_s,
+                       "calls": len(client.calls), "methods": sorted(methods),
+                       "wall_s": w_llm}
+    outside, conf_diff, csv_equal = payload_differences(
+        os.path.join(tmp, "llm_cuda"), os.path.join(tmp, "llm_cpu"))
+    emit("llm_on", delay_s=LLM_DELAY_S, runs=llm, wall_s_cuda_llm_off=w_off,
+         wall_s_cuda_llm_on=llm["cuda"]["wall_s"], launches=llm_launches,
+         keys_outside_table=len(outside), differing_keys=outside[:20],
+         confidence_max_abs_diff=conf_diff, csv_equal=csv_equal,
+         elapsed_phase_s=time.perf_counter() - t, **CARD)
+    if any(r["errors"] or r["llm_unpatched"] or r["segments"] != 8
+           or r["llm_patches"] != r["segments"]
+           or r["methods"] != ["mistral_vision_comprehensive"] for r in llm.values()):
+        return fail(f"LLM on: errors, unpatched or missing patches: {llm}")
+    if outside or not csv_equal or edge_by_path["book8_llm_on"] is None:
+        return fail(f"LLM on: the cuda and cpu JSON payloads differ outside the "
+                    f"table: {outside[:5]}, csv equal {csv_equal}, edge-stats "
+                    f"routes {edge_by_path['book8_llm_on']}")
+
+    # pixels handed to the LLM client never change after the submit, while
+    # 12 pages in batches of 2 wrap the loader's canvas ring
+    import zlib
+
+    class RecordingClient(FakePixtralClient):
+        def __init__(self):
+            super().__init__()
+            self.records = []  # (crc at submit, the submitted array)
+
+        def submit_comprehensive(self, pixels, ocr):
+            self.records.append((zlib.crc32(np.ascontiguousarray(pixels)), pixels))
+            return super().submit_comprehensive(pixels, ocr)
+
+    ring_pdf = os.path.join(tmp, "ring12.pdf")
+    make_test_book(ring_pdf, pages=12, seed=13)
+    recorder = RecordingClient()
+    p_ring, _, w_ring = run(ring_pdf, os.path.join(tmp, "ring"), "cuda",
+                            config=PipelineConfig(use_vision_llm=False,
+                                                  pages_per_batch=2),
+                            llm_client=recorder)
+    changed = [i for i, (crc, arr) in enumerate(recorder.records)
+               if zlib.crc32(np.ascontiguousarray(arr)) != crc]
+    emit("llm_ring", pages=12, pages_per_batch=2,
+         submissions=len(recorder.records), changed_after_submit=changed,
+         errors=p_ring.stats.errors, wall_s=w_ring, **CARD)
+    if len(recorder.records) < 10 or changed or p_ring.stats.errors:
+        return fail(f"LLM ring: {len(recorder.records)} submissions, changed "
+                    f"{changed}, {p_ring.stats.errors} errors")
+
+    # resume from the JSONL checkpoint: the second and third runs write no
+    # segment, the third with the PNG encoder swapped (ids hash raw pixels)
+    import unittest.mock as mock
+
+    t = time.perf_counter()
+    resume_out = os.path.join(tmp, "resume")
+    resumed = [run(book8, resume_out, "cuda", use_mermaid=True, resume=True)[0]]
+    resumed.append(run(book8, resume_out, "cuda", use_mermaid=True, resume=True)[0])
+    with mock.patch("synapta_tpu_torch.io.ingest.png_encode",
+                    side_effect=RuntimeError("encoder swapped")):
+        resumed.append(run(book8, resume_out, "cuda", use_mermaid=True,
+                           resume=True)[0])
+    written = [p.stats.segments for p in resumed]
+    total = payload(resume_out)["total_segments"]
+    emit("resume", segments_written=written, total_segments=total,
+         errors=[p.stats.errors for p in resumed], wall_s=time.perf_counter() - t,
+         **CARD)
+    if written[0] == 0 or written[1:] != [0, 0] or total != written[0] or any(
+            p.stats.errors for p in resumed):
+        return fail(f"resume: segments written {written}, total {total}")
+
+    # books from foreign toolchains on the card against the CPU: Pillow's
+    # image-per-page book (whole-page rasters: the DB detector and the CC
+    # kernel's fifth call site) and the /Rotate 90 scan; counters start at 0
+    # before each card run and are read after it
+    make_pil_book = helper_module("corpus").make_pil_book
+
+    t = time.perf_counter()
+    pil_pdf = os.path.join(tmp, "pilbook.pdf")
+    make_pil_book(pil_pdf, pages=4)
+    rot_pdf = os.path.join(tmp, "rotscan.pdf")
+    rotated_scan_pdf(rot_pdf)
+    books = {}
+    for label, pdf, kw in (
+            ("pilbook", pil_pdf, {"config": PipelineConfig(
+                use_vision_llm=False, pages_per_batch=4), "use_mermaid": True}),
+            ("rotscan", rot_pdf, {})):
+        connected_components_cuda.launches = 0
+        fused_edge_stats_cuda.launches = 0
+        del routes_seen[:], db_chunks[:]
+        chunks0 = TIMERS.counts.get("features_dispatch", 0)
+        D.boxes_device = counted_boxes
+        try:
+            p_gpu, s_gpu, w_gpu = run(pdf, os.path.join(tmp, f"{label}_cuda"),
+                                      "cuda", **kw)
+        finally:
+            D.boxes_device = boxes_device
+        row = {"segments": len(s_gpu),
+               "analyze_chunks": TIMERS.counts.get("features_dispatch", 0) - chunks0,
+               "db_chunks": len(db_chunks), "db_views": sum(db_chunks),
+               "launches": {"cc": connected_components_cuda.launches,
+                            "edge_stats": fused_edge_stats_cuda.launches},
+               "edge_stats_route": edge_launches(), "wall_s_cuda": w_gpu}
+        p_cpu, s_cpu, _ = run(pdf, os.path.join(tmp, f"{label}_cpu"), "cpu", **kw)
+        outside, conf_diff, csv_equal = payload_differences(
+            os.path.join(tmp, f"{label}_cuda"), os.path.join(tmp, f"{label}_cpu"))
+        b = s_gpu[0].bbox if s_gpu else None
+        row.update(errors=[p_gpu.stats.errors, p_cpu.stats.errors],
+                   cuda_equals_cpu=[key(s) for s in s_gpu] == [key(s) for s in s_cpu],
+                   keys_outside_table=len(outside), differing_keys=outside[:20],
+                   confidence_max_abs_diff=conf_diff, csv_equal=csv_equal,
+                   first_bbox=b and [b.x0, b.y0, b.x1, b.y1, b.page_width,
+                                     b.page_height])
+        books[label] = row
+        edge_by_path[f"foreign_{label}"] = row["edge_stats_route"]
+    # tests/test_torch_corpus.py runs the other two producers' books: the
+    # card machine has neither matplotlib nor fontTools (the env line)
+    emit("foreign_books", books=books, tier1_only={
+        "matplotlib Type3 and TrueType books": "needs matplotlib",
+        "fontTools xref-stream CID book": "needs fontTools"},
+        elapsed_phase_s=time.perf_counter() - t, **CARD)
+    for label, row in books.items():
+        if (any(row["errors"]) or not row["cuda_equals_cpu"] or row["keys_outside_table"]
+                or not row["csv_equal"] or row["edge_stats_route"] is None
+                or row["analyze_chunks"] == 0 or row["launches"]["cc"]
+                < 4 * row["analyze_chunks"] + row["db_chunks"]):
+            return fail(f"{label}: cuda against cpu: {row}")
+    if (books["pilbook"]["segments"] < 3 or books["pilbook"]["db_chunks"] == 0
+            or books["rotscan"]["segments"] != 1 or [round(v) for v in books[
+                "rotscan"]["first_bbox"]] != [156, 196, 456, 596, 612, 792]):
+        return fail(f"foreign books: {books}")
 
     # -------------------------------------------------------- 9. training
     # no kernel of its own: convs and matmuls through cuDNN/cuBLAS, the CTC
@@ -1389,22 +1660,28 @@ def main() -> int:
             det_run["model"].train(), D.make_det_train_step,
             lambda r: D.make_det_batch(r, batch=8)))
 
-    # launches: the 64-page book's, the 16-page scanned book's and the
-    # 2-shard 64-page book's runs; ms, plain_ms and bound_ms per analyze
-    # chunk (the CC row's four analyze sites; the DB site per DB chunk under
-    # "db_site"; a chunk as two half shards on two streams under "dp2")
+    # launches: the 64-page book's, the 16-page scanned book's, the 2-shard
+    # 64-page book's, the LLM-on 8-page book's and the two foreign books'
+    # runs; ms, plain_ms and bound_ms per analyze chunk (the CC row's four
+    # analyze sites; the DB site per DB chunk under "db_site"; a chunk as two
+    # half shards on two streams under "dp2")
     print(json.dumps({"kernels": [
         {"name": "connected_components", "route": "cuda",
          "source": "synapta_tpu_torch/csrc/cc.cu",
          "replaces": "synapta_tpu/ops/pallas_cc.py:100",
-         "launches": launches["cc"] + scan_launches["cc"] + dp_launches["cc"],
+         "launches": (launches["cc"] + scan_launches["cc"] + dp_launches["cc"]
+                      + llm_launches["cc"] + sum(
+                          b["launches"]["cc"] for b in books.values())),
          "max_abs_err": cc_err,
          "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound_ms,
          "bound_by": cc_bound_by, "library_ms": None,
          "sites": len(cc_checked), "site_names": cc_checked,
          "launches_by_path": {"book64": launches["cc"],
                               "scanned16": scan_launches["cc"],
-                              "book64_dp2": dp_launches["cc"]},
+                              "book64_dp2": dp_launches["cc"],
+                              "book8_llm_on": llm_launches["cc"],
+                              **{f"foreign_{k}": b["launches"]["cc"]
+                                 for k, b in books.items()}},
          "db_native_launches": native_cc_launches,
          "dp2": {"shape": dp_rows[0]["shape"], "ms": dp_cc_ms,
                  "plain_ms": dp_cc_plain_ms},
@@ -1417,7 +1694,8 @@ def main() -> int:
          "source": "synapta_tpu_torch/csrc/edge_stats.cu",
          "replaces": "synapta_tpu/ops/pallas_kernels.py:162",
          "launches": (launches["edge_stats"] + scan_launches["edge_stats"]
-                      + dp_launches["edge_stats"]),
+                      + dp_launches["edge_stats"] + llm_launches["edge_stats"]
+                      + sum(b["launches"]["edge_stats"] for b in books.values())),
          "max_abs_err": edge["default"]["max_abs_err"],
          "ms": edge["default"]["ms"], "plain_ms": edge["default"]["plain_ms"],
          "bound_ms": edge["default"]["bound_ms"],

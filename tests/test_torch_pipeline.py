@@ -10,9 +10,10 @@
   ``*_visual_summary.csv`` equal key by key and cell by cell, apart from the
   entries of ``chip_smoke.ALLOWED_DIFFERENCES``, each of which this book
   needs.
-- ``import synapta_tpu_torch.pipeline`` (fresh process) loads no jax/flax
-  and no module of the JAX package; no file of the port and not
-  chip_smoke.py imports either (read from the syntax tree).
+- ``import synapta_tpu_torch.pipeline`` (fresh process; also the bench and
+  scripts/torch_llm_at_scale.py) loads no jax/flax and no module of the
+  JAX package; no file of the port, not chip_smoke.py and no
+  scripts/torch_*.py imports either (read from the syntax tree).
 - Every verbatim host-code copy (functions, the refine knobs and whole
   host modules, the training-line generator and the detector's synthetic
   pages and targets among them) equals its original source, except that ``from
@@ -25,6 +26,7 @@
   binds the DB detector on the OCR's device.
 """
 import ast
+import glob
 import inspect
 import json
 import os
@@ -163,7 +165,9 @@ def test_import_is_jax_free():
         "synapta_tpu_torch.serve, synapta_tpu_torch.models.train, "
         "synapta_tpu_torch.models.synthdata, synapta_tpu_torch.models.optim, "
         "synapta_tpu_torch.parallel.mesh, synapta_tpu_torch.parallel.launch, "
-        "synapta_tpu_torch.parallel.dryrun, synapta_tpu_torch.graft_entry; "
+        "synapta_tpu_torch.parallel.dryrun, synapta_tpu_torch.graft_entry, "
+        "synapta_tpu_torch.bench, runpy; "
+        "runpy.run_path('scripts/torch_llm_at_scale.py', run_name='probe'); "
         "print(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {_BANNED!r}))"
     )
@@ -190,7 +194,13 @@ def _imported_roots(tree):
 
 
 def test_no_jax_import_lines_in_port():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """The port's files, chip_smoke.py and the port's scripts
+    (scripts/torch_*.py)."""
+    scripts = glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
+    assert {os.path.basename(f) for f in scripts} >= {
+        "torch_llm_at_scale.py", "torch_card_parity.py",
+        "torch_edge_stats_timing.py"}
+    files = [os.path.join(REPO, "chip_smoke.py"), *scripts]
     for root, _, names in os.walk(os.path.join(REPO, "synapta_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
