@@ -41,6 +41,15 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   DB detector) and a /Rotate 90 scan, the GPU against the CPU under the
   table (``foreign_books``; the matplotlib and fontTools books run in the
   tier-1 tests only);
+- the chunk shapes of scripts/torch_sweep.py (the JAX package's batch-shape
+  sweep): both kernels against their twins at B = 32 and 64, timed beside
+  their bounds, ``device_analyze`` on 32 crops against two 16-crop calls,
+  the recognizer's 256-tile batch on the GPU against the CPU, and the
+  64-page book at each of the six configurations, each one's JSON held to
+  ``base``'s under the table (``sweep_shapes``); scripts/torch_real_corpus.py's
+  ``build_book`` on 16 crops the 64-page run wrote (a JPEG image a page),
+  the GPU against the CPU, every page an ``embedded_image`` segment
+  (``crop_book``);
 - training, which launches no kernel of the port's own (cuDNN, cuBLAS and
   torch's CTC loss): three optimiser steps of each trainer in float32 on
   the GPU against the CPU from the same parameters and batches, and the
@@ -66,8 +75,9 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   (``dryrun``) and the ``graft_entry.entry()`` forward (``entry``).
 
 Kernel launch counters are set to 0 just before each of the 64-page, the
-16-page scanned, the LLM-on 8-page, the two foreign books' and the 2-shard
-64-page runs and read just after, with the route of every edge-stats launch
+16-page scanned, the LLM-on 8-page, the two foreign books', the six sweep
+configurations', the crop book's and the 2-shard 64-page runs and read
+just after, with the route of every edge-stats launch
 (all must be the default route's). Every
 phase prints one JSON line; any failure exits nonzero. The last line is
 
@@ -407,14 +417,15 @@ def payload_differences(out_a: str, out_b: str, book_id: str = "smoke"):
     return outside, conf, csvs[0] == csvs[1]
 
 
-def helper_module(name: str):
-    """A jax-free helper module of the repo's tests/, loaded from its file:
-    the directory is no package, and a ``tests`` package installed on the
-    machine would take its place under ``import tests.<name>``."""
+def helper_module(name: str, folder: str = "tests"):
+    """A jax-free helper module of the repo's tests/ (or scripts/), loaded
+    from its file: the directory is no package, and a ``tests`` package
+    installed on the machine would take its place under
+    ``import tests.<name>``."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        f"_tests_{name}", os.path.join(HERE, "tests", f"{name}.py"))
+        f"_{folder}_{name}", os.path.join(HERE, folder, f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -565,20 +576,25 @@ def main() -> int:
     db_mask = D.closed_mask(db_logits_gpu, det.prob_thresh)
 
     # ------------------------------------------------------------- 2. cc
-    with torch.inference_mode():
-        feats = _core_features(gray_u8, rgb_q)
-        ink, vink, bg = feats["_ink"], feats["_vink"], feats["_bg"]
-        main_masks = {  # the four main-path call sites: (mask, cap, conn)
-            "ink_blobs": (downsample2(ink), 6, 8),
-            "vink_bars": (downsample2_min(vink), 4, 8),
-            "enclosed_bg": (downsample2(_enclosed_mask(1.0 - bg)), 6, 4),
-            "text_lines": (downsample2(fuse_text_mask(ink)), 10, 8),
-        }
+    def site_masks(gray, rgb_q):
+        """The four main-path CC call sites of an analyze chunk:
+        {site: (mask, cap, connectivity)}."""
+        with torch.inference_mode():
+            feats = _core_features(gray, rgb_q)
+            ink, vink, bg = feats["_ink"], feats["_vink"], feats["_bg"]
+            return {
+                "ink_blobs": (downsample2(ink), 6, 8),
+                "vink_bars": (downsample2_min(vink), 4, 8),
+                "enclosed_bg": (downsample2(_enclosed_mask(1.0 - bg)), 6, 4),
+                "text_lines": (downsample2(fuse_text_mask(ink)), 10, 8),
+            }
+
+    main_masks = site_masks(gray_u8, rgb_q)
     gen = np.random.default_rng(SEED)
     rand = torch.from_numpy(
         (gen.random((16, 256, 256)) < 0.45).astype(np.float32)).to(dev)
 
-    def cc_site(site, mask, iters, conn):
+    def cc_site(site, mask, iters, conn, rand=rand):
         """Check one call site against the twin (rendered and random masks),
         time it; -> (row, None) or (None, failure message)."""
         mask = mask.contiguous()
@@ -706,9 +722,10 @@ def main() -> int:
         packed = device_analyze_dispatch(crops, sizes=crop_sizes, device=dev)
         _, boxes = unpack_analysis(packed.cpu().numpy(), crops.shape[0])
         tiles += ocr.collect_tiles(crops[:n_real], None, boxes[:n_real])[0]
-        if len(tiles) >= 128:
+        if len(tiles) >= 256:  # 128 here, 256 for the sweep's lb256 batch
             break
-    tiles = np.stack(tiles[:128])
+    tiles256 = np.stack(tiles[:256])
+    tiles = tiles256[:128]
     ocr_cpu = TorchOCR(OCRConfig(), device="cpu")
     ocr_cpu.model = recognizer_from_flax(load_params(), dtype=torch.float32,
                                          device="cpu")
@@ -1234,6 +1251,164 @@ def main() -> int:
                 "rotscan"]["first_bbox"]] != [156, 196, 456, 596, 612, 792]):
         return fail(f"foreign books: {books}")
 
+    # ------------------------------------------------ 8c. sweep shapes
+    # scripts/torch_sweep.py's chunk shapes (the JAX package's batch-shape
+    # sweep): both kernels against their twins at B = 32 and 64, timed, and
+    # the analyze pass on 32 crops against two 16-crop calls; the 64-page
+    # book at every configuration, its whole JSON held to base's, with the
+    # launches of each run (counters at 0 before it, read after it); the
+    # recognizer's 256-tile batch, the card against the CPU
+    t = time.perf_counter()
+    sweep = helper_module("torch_sweep", "scripts")
+    wide, wide_sizes, _ = rendered_crops(book64, range(0, 64), n=64)
+    gen_wide = np.random.default_rng(SEED + 1)
+    at_batch = {}
+    for B in (32, 64):
+        g_np, q_np = gray_quarter_host(wide[:B])
+        g_b = torch.from_numpy(g_np).to(dev)
+        masks_b = site_masks(g_b, torch.from_numpy(
+            np.ascontiguousarray(q_np[:, ::2, ::2])).to(dev))
+        rand_b = torch.from_numpy(
+            (gen_wide.random((B, 256, 256)) < 0.45).astype(np.float32)).to(dev)
+        row = {"cc": {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0,
+                      "ops": 0.0, "max_abs_err": 0, "rounds_max": {}}}
+        for site, (mask, iters, conn) in masks_b.items():
+            site_row, err_msg = cc_site(site, mask, iters, conn, rand=rand_b)
+            if err_msg:
+                return fail(f"{err_msg} at B = {B}")
+            for k in ("ms", "plain_ms", "bound_ms", "bytes", "ops"):
+                row["cc"][k] += site_row[k]
+            row["cc"]["max_abs_err"] = max(row["cc"]["max_abs_err"],
+                                           site_row["max_abs_err"])
+            row["cc"]["rounds_max"][site] = max(site_row["rounds"])
+        row["cc"]["bound_by"] = bound(row["cc"]["bytes"], row["cc"]["ops"])[1]
+        gray_b = g_b.to(torch.float32).contiguous()
+        noise_b = torch.from_numpy(gen_wide.integers(0, 256, (B, 512, 512)).astype(
+            np.float32)).to(dev)
+        e_err = 0.0
+        for g in (gray_b, noise_b):
+            got = fused_edge_stats_cuda(g)
+            torch.cuda.synchronize()
+            want = fused_edge_stats_reference(g)
+            if got.shape != want.shape or not torch.equal(got, want):
+                return fail(f"edge-stats kernel != twin at B = {B}")
+            e_err = max(e_err, float((got - want).abs().max()))
+        e_bytes = gray_b.numel() * 4 + got.numel() * 4
+        e_bound, e_by = bound(e_bytes, 60.0 * gray_b.numel())
+        row["edge_stats"] = {
+            "ms": cuda_ms(lambda: fused_edge_stats_cuda(gray_b)),
+            "plain_ms": cuda_ms(lambda: fused_edge_stats_reference(gray_b)),
+            "bound_ms": e_bound, "bound_by": e_by, "bytes": e_bytes,
+            "max_abs_err": e_err}
+        at_batch[B] = row
+    # the analyze pass is per crop: 32 crops in one call = two 16-crop calls
+    from synapta_tpu_torch.ops.features import device_analyze
+
+    f32, b32 = device_analyze(wide[:32], sizes=wide_sizes[:32], device=dev)
+    halves = [device_analyze(wide[i:i + 16], sizes=wide_sizes[i:i + 16], device=dev)
+              for i in (0, 16)]
+    invariant = (np.array_equal(b32, np.concatenate([h[1] for h in halves]))
+                 and all(np.array_equal(f32[k], np.concatenate([h[0][k] for h in halves]))
+                         for k in f32))
+    # the recognizer at the lb256 batch, bf16 on the card against float32 on
+    # the CPU
+    ocr256 = TorchOCR(OCRConfig(line_batch=256), device="cuda")
+    ocr256_cpu = TorchOCR(OCRConfig(line_batch=256), device="cpu")
+    ocr256_cpu.model = ocr_cpu.model
+    rec256 = [o.recognize_tiles(tiles256) for o in (ocr256, ocr256_cpu)]
+    agree256 = sum(a["text"] == b["text"] for a, b in zip(*rec256)) / len(tiles256)
+    tiles256_dev = torch.from_numpy(tiles256).to(dev)
+    rec256_ms = cuda_ms(lambda: ocr256._decode(tiles256_dev), runs=10)
+    # the 64-page book at each configuration, in the JAX script's order
+    sweep_runs = {}
+    for name in sweep.CFGS:
+        connected_components_cuda.launches = 0
+        fused_edge_stats_cuda.launches = 0
+        del routes_seen[:]
+        chunks0 = TIMERS.counts.get("features_dispatch", 0)
+        p_sw, s_sw, w_sw = run(book64, os.path.join(tmp, f"sweep_{name}"), "cuda",
+                               config=sweep.sweep_config(name))
+        sweep_runs[name] = {
+            "segments": len(s_sw), "errors": p_sw.stats.errors,
+            "chunks": TIMERS.counts.get("features_dispatch", 0) - chunks0,
+            "launches": {"cc": connected_components_cuda.launches,
+                         "edge_stats": fused_edge_stats_cuda.launches},
+            "edge_stats_route": edge_launches(), "wall_s": w_sw,
+            "pages_per_s": p_sw.stats.pages / w_sw}
+        edge_by_path[f"sweep_{name}"] = sweep_runs[name]["edge_stats_route"]
+    for name, row in sweep_runs.items():
+        outside, conf_diff, csv_equal = payload_differences(
+            os.path.join(tmp, f"sweep_{name}"), os.path.join(tmp, "sweep_base"))
+        row.update(keys_outside_table=len(outside), differing_keys=outside[:20],
+                   confidence_max_abs_diff=conf_diff, csv_equal=csv_equal)
+    emit("sweep_shapes", configs=sweep.CFGS, runs=sweep_runs,
+         kernels_at_batch={B: {k: {f: v for f, v in r.items() if f not in ("bytes", "ops")}
+                               for k, r in row.items()} for B, row in at_batch.items()},
+         analyze_32_equals_two_16=invariant,
+         recognizer_256={"tiles": int(tiles256.shape[0]),
+                         "bf16_gpu_vs_f32_cpu_equal_share": agree256,
+                         "ms_per_256_tiles": rec256_ms, "ms_per_128_tiles": rec_ms},
+         elapsed_phase_s=time.perf_counter() - t, **CARD)
+    if not invariant:
+        return fail("device_analyze on 32 crops != two 16-crop calls")
+    if tiles256.shape[0] != 256 or agree256 < 0.95:
+        return fail(f"recognizer at 256 tiles: {tiles256.shape[0]} tiles, "
+                    f"agreement {agree256:.3f}")
+    for name, row in sweep_runs.items():
+        if (row["errors"] or row["segments"] != len(segs) or row["keys_outside_table"]
+                or not row["csv_equal"] or row["edge_stats_route"] is None
+                or row["chunks"] == 0 or row["launches"] != {
+                    "cc": 4 * row["chunks"], "edge_stats": row["chunks"]}):
+            return fail(f"sweep {name}: {row}")
+
+    # ----------------------------------------------------- 8d. crop book
+    # scripts/torch_real_corpus.py's book on 16 crops that the 64-page run
+    # wrote: one DCT/JPEG image a page at its 150-DPI size, through the
+    # embedded-image path; the card against the CPU, counters at 0 before the
+    # card's run and read after it
+    import shutil
+
+    t = time.perf_counter()
+    real_corpus = helper_module("torch_real_corpus", "scripts")
+    crop_dir = os.path.join(tmp, "crops16")
+    os.makedirs(crop_dir)
+    for seg in payload(out64)["segments"][:16]:
+        shutil.copy(seg["image_path"], crop_dir)
+    real_corpus.CORPUS = crop_dir
+    crop_pdf = os.path.join(tmp, "cropbook.pdf")
+    n_crop_pages = real_corpus.build_book(crop_pdf)
+    crop = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            connected_components_cuda.launches = 0
+            fused_edge_stats_cuda.launches = 0
+            del routes_seen[:]
+            chunks0 = TIMERS.counts.get("features_dispatch", 0)
+        res = real_corpus.run(crop_pdf, os.path.join(tmp, f"crop_{device}"),
+                              n_crop_pages, device=device)
+        if device == "cuda":
+            res.update(chunks=TIMERS.counts.get("features_dispatch", 0) - chunks0,
+                       launches={"cc": connected_components_cuda.launches,
+                                 "edge_stats": fused_edge_stats_cuda.launches},
+                       edge_stats_route=edge_launches())
+            crop_launches = res["launches"]
+            edge_by_path["crop_book"] = res["edge_stats_route"]
+        crop[device] = res
+    outside, conf_diff, csv_equal = payload_differences(
+        os.path.join(tmp, "crop_cuda"), os.path.join(tmp, "crop_cpu"),
+        "investments_real")
+    emit("crop_book", pages=n_crop_pages, runs=crop,
+         keys_outside_table=len(outside), differing_keys=outside[:20],
+         confidence_max_abs_diff=conf_diff, csv_equal=csv_equal,
+         elapsed_phase_s=time.perf_counter() - t, **CARD)
+    if (n_crop_pages != 16 or outside or not csv_equal
+            or any(r["pages_with_embedded_segment"] != 16 or r["swallowed_errors"]
+                   for r in crop.values())
+            or crop["cuda"]["edge_stats_route"] is None or crop["cuda"]["chunks"] == 0
+            or crop_launches["cc"] < 4 * crop["cuda"]["chunks"]):
+        return fail(f"crop book: cuda against cpu: {crop}, outside {outside[:5]}, "
+                    f"csv equal {csv_equal}")
+
     # -------------------------------------------------------- 9. training
     # no kernel of its own: convs and matmuls through cuDNN/cuBLAS, the CTC
     # loss through torch's, as the JAX package leaves them to XLA and optax
@@ -1661,17 +1836,28 @@ def main() -> int:
             lambda r: D.make_det_batch(r, batch=8)))
 
     # launches: the 64-page book's, the 16-page scanned book's, the 2-shard
-    # 64-page book's, the LLM-on 8-page book's and the two foreign books'
-    # runs; ms, plain_ms and bound_ms per analyze chunk (the CC row's four
-    # analyze sites; the DB site per DB chunk under "db_site"; a chunk as two
-    # half shards on two streams under "dp2")
+    # 64-page book's, the LLM-on 8-page book's, the two foreign books', the
+    # six sweep configurations' and the crop book's runs; ms, plain_ms and
+    # bound_ms per analyze chunk of 16 crops (the CC row's four analyze
+    # sites; the DB site per DB chunk under "db_site"; a chunk as two half
+    # shards on two streams under "dp2"; chunks of 32 and 64 crops under
+    # "at_batch")
+    sweep_cc = {f"sweep_{k}": r["launches"]["cc"] for k, r in sweep_runs.items()}
+    sweep_edge = {f"sweep_{k}": r["launches"]["edge_stats"]
+                  for k, r in sweep_runs.items()}
+
+    def batch_rows(kernel):
+        return {B: {k: v for k, v in row[kernel].items() if k not in ("bytes", "ops")}
+                for B, row in at_batch.items()}
+
     print(json.dumps({"kernels": [
         {"name": "connected_components", "route": "cuda",
          "source": "synapta_tpu_torch/csrc/cc.cu",
          "replaces": "synapta_tpu/ops/pallas_cc.py:100",
          "launches": (launches["cc"] + scan_launches["cc"] + dp_launches["cc"]
                       + llm_launches["cc"] + sum(
-                          b["launches"]["cc"] for b in books.values())),
+                          b["launches"]["cc"] for b in books.values())
+                      + sum(sweep_cc.values()) + crop_launches["cc"]),
          "max_abs_err": cc_err,
          "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound_ms,
          "bound_by": cc_bound_by, "library_ms": None,
@@ -1681,13 +1867,15 @@ def main() -> int:
                               "book64_dp2": dp_launches["cc"],
                               "book8_llm_on": llm_launches["cc"],
                               **{f"foreign_{k}": b["launches"]["cc"]
-                                 for k, b in books.items()}},
+                                 for k, b in books.items()},
+                              **sweep_cc, "crop_book": crop_launches["cc"]},
          "db_native_launches": native_cc_launches,
          "dp2": {"shape": dp_rows[0]["shape"], "ms": dp_cc_ms,
                  "plain_ms": dp_cc_plain_ms},
          "db_site": {"ms": db_row["ms"], "plain_ms": db_row["plain_ms"],
                      "bound_ms": db_row["bound_ms"],
-                     "bound_by": db_row["bound_by"]}},
+                     "bound_by": db_row["bound_by"]},
+         "at_batch": batch_rows("cc")},
         # ms, plain_ms, max_abs_err and bound_ms are the default route's (the
         # one every path above ran); "routes" has both
         {"name": "fused_edge_stats", "route": "cuda",
@@ -1695,7 +1883,8 @@ def main() -> int:
          "replaces": "synapta_tpu/ops/pallas_kernels.py:162",
          "launches": (launches["edge_stats"] + scan_launches["edge_stats"]
                       + dp_launches["edge_stats"] + llm_launches["edge_stats"]
-                      + sum(b["launches"]["edge_stats"] for b in books.values())),
+                      + sum(b["launches"]["edge_stats"] for b in books.values())
+                      + sum(sweep_edge.values()) + crop_launches["edge_stats"]),
          "max_abs_err": edge["default"]["max_abs_err"],
          "ms": edge["default"]["ms"], "plain_ms": edge["default"]["plain_ms"],
          "bound_ms": edge["default"]["bound_ms"],
@@ -1704,7 +1893,8 @@ def main() -> int:
                                             "bound_ms", "bound_by")}
                     for r, row in edge.items()},
          "launches_by_path": edge_by_path,
-         "dp2": {"shape": list(gray_halves[0].shape), **dp_edge}},
+         "dp2": {"shape": list(gray_halves[0].shape), **dp_edge},
+         "at_batch": batch_rows("edge_stats")},
     ]}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,10 @@ key and the CSVs cell by cell under ``chip_smoke.ALLOWED_DIFFERENCES``.
 - ``tests/test_pipeline.py::test_fake_llm_flow``: the immediate fake client
   with ``use_vision_llm=True``; every segment classified by the LLM, the
   calculation follow-up called and patched into the image payloads.
-- ``tests/test_llm_async.py::test_llm_latency_off_critical_path``: a
-  1.5 s-a-call client adds less than 3 delays + 4 s to the wall of a
-  0 s-a-call run, and every late patch lands.
+- ``tests/test_llm_async.py::test_llm_latency_off_critical_path``: with a
+  1.5 s-a-call client the pipeline's own thread spends less than a quarter
+  of a call inside the client's ``submit_*`` calls, the tail after the
+  book waits less than two calls and a second, and every late patch lands.
 - ``tests/test_llm_async.py::test_llm_followups_patch_in``: every segment a
   flowchart with its Mermaid follow-up patched in.
 - ``tests/test_llm_async.py::test_deferred_pixel_reads_survive_canvas_recycling``:
@@ -21,8 +22,10 @@ key and the CSVs cell by cell under ``chip_smoke.ALLOWED_DIFFERENCES``.
   and third runs over the JSONL checkpoint write no segment, also with the
   PNG encoder swapped.
 """
+import collections
 import json
 import os
+import threading
 import time
 import unittest.mock as mock
 import zlib
@@ -139,40 +142,73 @@ def test_fake_llm_flow_json_equals_the_jax_pipelines(fake_flow):
 # ----------------------------------------------------- the delayed client
 
 
+class TimedSubmitClient(DelayedFakeClient):
+    """DelayedFakeClient that adds up, by thread, the seconds spent inside
+    its ``submit_*`` calls: what the LLM costs the thread that submits."""
+
+    def __init__(self, delay, workers):
+        super().__init__(delay, workers=workers)
+        self.submit_s = collections.defaultdict(float)  # thread ident -> s
+        self.submits = collections.defaultdict(int)  # thread ident -> calls
+        self._lock = threading.Lock()
+
+    def _timed(self, submit, *args):
+        t0 = time.perf_counter()
+        try:
+            return submit(*args)
+        finally:
+            with self._lock:
+                self.submit_s[threading.get_ident()] += time.perf_counter() - t0
+                self.submits[threading.get_ident()] += 1
+
+    def submit_comprehensive(self, pixels, ocr):
+        return self._timed(super().submit_comprehensive, pixels, ocr)
+
+    def submit_mermaid(self, pixels, visual_type, ocr):
+        return self._timed(super().submit_mermaid, pixels, visual_type, ocr)
+
+    def submit_calculations(self, pixels, ocr, nearby):
+        return self._timed(super().submit_calculations, pixels, ocr, nearby)
+
+
 @pytest.fixture(scope="module")
 def latency_runs(book, torch_ocr, jax_ocr):
-    """test_llm_latency_off_critical_path's runs on the port (a 0 s and a
-    1.5 s client, one shared OCR) and the JAX pipeline's 1.5 s run."""
+    """test_llm_latency_off_critical_path's 1.5 s-a-call runs: the port's,
+    with the seconds its own thread spent submitting, and the JAX
+    pipeline's."""
     pdf, d = book
 
     def run(pipe_cls, cfg, client, ocr, out, **kw):
         pipe = pipe_cls("latbook", pdf, output_dir=str(d / out), use_mermaid=True,
                         config=cfg, llm_client=client, ocr=ocr, resume=False, **kw)
-        t0 = time.time()
         pipe.process()
-        wall = time.time() - t0
         pipe.close()
-        return wall, pipe
+        return pipe
 
-    cfg = PipelineConfig(use_vision_llm=False)
-    base, _ = run(TorchPipe, cfg, DelayedFakeClient(0.0, workers=POOL), torch_ocr,
-                  "t_lat0", device="cpu")
-    client = DelayedFakeClient(DELAY, workers=POOL)
-    wall, tp = run(TorchPipe, cfg, client, torch_ocr, "t_lat1", device="cpu")
+    client = TimedSubmitClient(DELAY, workers=POOL)
+    tp = run(TorchPipe, PipelineConfig(use_vision_llm=False), client, torch_ocr,
+             "t_lat1", device="cpu")
     client.shutdown()
-    _, jp = run(JaxPipe, JaxPipelineConfig(use_vision_llm=False, data_devices=1),
-                JaxDelayedClient(delay=DELAY), jax_ocr, "j_lat1")
-    return base, wall, tp, jp, d
+    me = threading.get_ident()  # process() ran on this thread
+    submitted = (client.submits[me], client.submit_s[me])
+    jp = run(JaxPipe, JaxPipelineConfig(use_vision_llm=False, data_devices=1),
+             JaxDelayedClient(delay=DELAY), jax_ocr, "j_lat1")
+    return submitted, tp, jp, d
 
 
 def test_llm_latency_off_critical_path(latency_runs):
-    base, wall, tp, _, d = latency_runs
+    """The pipeline's thread hands each call to the client and goes on: it
+    spends a small share of one call submitting, whatever the host's load
+    does to the walls, and waits at the end for the last calls only."""
+    (calls, submit_s), tp, _, d = latency_runs
     payload = json.load(open(d / "t_lat1" / "latbook_visual_segments.json"))
     n = payload["total_segments"]
     assert n >= 7
-    assert wall < base + 3 * DELAY + 4.0, (
-        f"LLM latency leaked onto the critical path: base={base:.1f}s "
-        f"wall={wall:.1f}s n={n}")
+    assert calls >= n, calls  # every analysis was submitted from that thread
+    assert submit_s < 0.25 * DELAY, (
+        f"LLM latency leaked onto the critical path: {submit_s:.2f}s inside "
+        f"submit_* on the pipeline's thread, n={n}")
+    assert tp.stats.llm_drain_wait_s < 2 * DELAY + 1.0, tp.stats.llm_drain_wait_s
     for s in payload["segments"]:
         assert s["classification_method"] == "mistral_vision_comprehensive", s[
             "segment_id"]
@@ -182,7 +218,7 @@ def test_llm_latency_off_critical_path(latency_runs):
 
 
 def test_delayed_llm_json_equals_the_jax_pipelines(latency_runs):
-    _, _, tp, jp, d = latency_runs
+    _, tp, jp, d = latency_runs
     assert jp.stats.llm_unpatched == 0 and jp.stats.llm_patches == tp.stats.llm_patches
     _assert_same_payloads(d / "t_lat1", d / "j_lat1", "latbook")
 

@@ -11,17 +11,19 @@
   entries of ``chip_smoke.ALLOWED_DIFFERENCES``, each of which this book
   needs.
 - ``import synapta_tpu_torch.pipeline`` (fresh process; also the bench and
-  scripts/torch_llm_at_scale.py) loads no jax/flax and no module of the
-  JAX package; no file of the port, not chip_smoke.py and no
-  scripts/torch_*.py imports either (read from the syntax tree).
+  the top level of scripts/torch_{llm_at_scale,sweep,mpl_scale,real_corpus}.py)
+  loads no jax/flax and no module of the JAX package; no file of the port,
+  not chip_smoke.py and no scripts/torch_*.py imports either (read from the
+  syntax tree).
 - Every verbatim host-code copy (functions, the refine knobs and whole
   host modules, the training-line generator and the detector's synthetic
-  pages and targets among them) equals its original source, except that ``from
+  pages and targets among them, and the book makers of the matplotlib and
+  real-corpus scripts) equals its original source, except that ``from
   synapta_tpu`` imports name ``synapta_tpu_torch`` and for the named
   substitutions (the device arguments of collect_tiles, db_detector, the
-  evaluations and the book queue; the DB detector's device dispatch; the
-  engine binary's path; ``torch_trace`` in the place of ``jax_trace``;
-  reference-project files named from its root).
+  evaluations, the book queue and the real-corpus run; the DB detector's
+  device dispatch; the engine binary's path; ``torch_trace`` in the place of
+  ``jax_trace``; reference-project files named from its root).
 - No silent fallback: "cuda" raises without CUDA. ``line_detector="db"``
   binds the DB detector on the OCR's device.
 """
@@ -37,7 +39,12 @@ import sys
 import pytest
 import torch
 
-from chip_smoke import ALLOWED_DIFFERENCES, allowed_difference, json_differences
+from chip_smoke import (
+    ALLOWED_DIFFERENCES,
+    allowed_difference,
+    helper_module,
+    json_differences,
+)
 from synapta_tpu.config import PipelineConfig as JaxPipelineConfig
 from synapta_tpu.io.pdf_writer import make_test_book
 from synapta_tpu.llm.fake import DisabledClient as JaxDisabledClient
@@ -167,7 +174,8 @@ def test_import_is_jax_free():
         "synapta_tpu_torch.parallel.mesh, synapta_tpu_torch.parallel.launch, "
         "synapta_tpu_torch.parallel.dryrun, synapta_tpu_torch.graft_entry, "
         "synapta_tpu_torch.bench, runpy; "
-        "runpy.run_path('scripts/torch_llm_at_scale.py', run_name='probe'); "
+        "[runpy.run_path(f'scripts/torch_{s}.py', run_name='probe') for s in "
+        "('llm_at_scale', 'sweep', 'mpl_scale', 'real_corpus')]; "
         "print(sorted(m for m in sys.modules "
         f"if m.split('.')[0] in {_BANNED!r}))"
     )
@@ -199,7 +207,8 @@ def test_no_jax_import_lines_in_port():
     scripts = glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
     assert {os.path.basename(f) for f in scripts} >= {
         "torch_llm_at_scale.py", "torch_card_parity.py",
-        "torch_edge_stats_timing.py"}
+        "torch_edge_stats_timing.py", "torch_sweep.py", "torch_mpl_scale.py",
+        "torch_real_corpus.py"}
     files = [os.path.join(REPO, "chip_smoke.py"), *scripts]
     for root, _, names in os.walk(os.path.join(REPO, "synapta_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -336,7 +345,29 @@ def _copies():
         out.append((f"eval.{name}", getattr(tev, name), getattr(jev, name),
                     _EVAL_SUBS.get(name, [])))
     out.append(("serve", tserve, jserve, _SERVE_SUBS))
+
+    # the JAX package's scripts and the port's, loaded from their files
+    mpl, t_mpl = (helper_module(n, "scripts")
+                  for n in ("mpl_scale_r4", "torch_mpl_scale"))
+    real, t_real = (helper_module(n, "scripts")
+                    for n in ("real_corpus_r5", "torch_real_corpus"))
+    out.append(("mpl_scale.make_big_mpl_book", t_mpl.make_big_mpl_book,
+                mpl.make_big_mpl_book, []))
+    out.append(("real_corpus.constants", _corpus_block(t_real),
+                _corpus_block(real), []))
+    out.append(("real_corpus.build_book", t_real.build_book, real.build_book, []))
+    out.append(("real_corpus.run", t_real.run, real.run, [
+        ("def run(pdf_path: str, out_dir: str, n_pages: int) -> dict:\n",
+         "def run(pdf_path: str, out_dir: str, n_pages: int, device=\"cuda\") -> dict:\n"),
+        ("        resume=False,\n    )\n",
+         "        resume=False,\n        device=device,\n    )\n")]))
     return out
+
+
+def _corpus_block(module):
+    """The real-corpus script's constants: CORPUS to FINANCE_TERMS."""
+    m = re.search(r"^CORPUS = .*?^]\n", inspect.getsource(module), re.M | re.S)
+    return m.group(0)
 
 
 def _knobs(module):
@@ -452,10 +483,10 @@ def _source(obj):
     return inspect.getsource(obj)
 
 
-@pytest.mark.parametrize("idx", range(76))
+@pytest.mark.parametrize("idx", range(80))
 def test_verbatim_copy(idx):
     copies = _copies()
-    assert len(copies) == 76
+    assert len(copies) == 80
     name, port, orig, subs = copies[idx]
     want = _source(orig)
     for a, b in subs:
