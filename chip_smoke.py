@@ -50,6 +50,16 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   ``build_book`` on 16 crops the 64-page run wrote (a JPEG image a page),
   the GPU against the CPU, every page an ``embedded_image`` segment
   (``crop_book``);
+- ``make_diverse_book(seed=5)`` (two-column pages, a rotated axis label, a
+  CMYK JPEG, two scanned-page rasters through the DB detector, a
+  three-visual page), the book tests/test_torch_diverse.py holds to the JAX
+  pipeline, on the GPU and on the CPU, each run under ``OCRRecorder``, its
+  recognizer tiles and DB views evaluated again in bf16 and in float32 on
+  its own device, and the GPU held to the CPU by the OCR yardstick
+  (``ocr_yardstick``, ``db_yardstick``, ``judge_keys``): float32 logits
+  within ``F32_LOGIT_BOUND``, the GPU's bf16 no farther from the CPU's than
+  the CPU's bf16 from its own float32, and every key outside the table
+  explained by a line that this excused (``e2e_diverse``);
 - training, which launches no kernel of the port's own (cuDNN, cuBLAS and
   torch's CTC loss): three optimiser steps of each trainer in float32 on
   the GPU against the CPU from the same parameters and batches, and the
@@ -76,7 +86,8 @@ float32 on the CPU, then drives the port's entry points on the GPU:
 
 Kernel launch counters are set to 0 just before each of the 64-page, the
 16-page scanned, the LLM-on 8-page, the two foreign books', the six sweep
-configurations', the crop book's and the 2-shard 64-page runs and read
+configurations', the crop book's, the diverse book's and the 2-shard
+64-page runs and read
 just after, with the route of every edge-stats launch
 (all must be the default route's). Every
 phase prints one JSON line; any failure exits nonzero. The last line is
@@ -126,6 +137,9 @@ BOOK8_SEED = 11
 # (pages, seed) of the scanned book the tier-1 test holds to the JAX
 # pipeline (tests/test_torch_entrypoints.py)
 SCAN2_PAGES_SEED = (2, 2)
+# the seed of make_diverse_book that tests/test_torch_diverse.py holds to the
+# JAX pipeline
+DIVERSE_SEED = 5
 # an OCR confidence in the segment JSON: a text line's or a segment's mean
 CONFIDENCE_PATH = r"segments\[\d+\]\.ocr_result\.(blocks\[\d+\]\.)?confidence"
 # Training. Three steps of each trainer in float32 on the card against the
@@ -415,6 +429,499 @@ def payload_differences(out_a: str, out_b: str, book_id: str = "smoke"):
         with open(os.path.join(out, f"{book_id}_visual_summary.csv")) as f:
             csvs.append(f.read())
     return outside, conf, csvs[0] == csvs[1]
+
+
+class OCRRecorder:
+    """Records what one pipeline run hands its recognizer and its DB line
+    detector. For every ``group_dispatch``: the tiles, owners, line boxes and
+    parts that ``collect_tiles`` cut for each item, the crops whose boxes the
+    DB detector drew, and the OCRResults that ``group_sync`` returned. For
+    every ``_build_segment``: the id of the segment an OCRResult went into.
+    For every DB chunk: the arguments of the detector module's boxes
+    function (model or params, the (16, S, S) uint8 views, the threshold).
+    Either package fits (the port's ``TorchOCR``, pipeline class and
+    ``boxes_device``, the JAX package's ``TPUOCR``, pipeline class and
+    ``_boxes_device``): the same method names, patched while the recorder
+    is entered. Nothing here imports either package."""
+
+    def __init__(self, ocr_cls, pipe_cls, det_module, boxes_fn: str):
+        self.targets = [(ocr_cls, n) for n in
+                        ("collect_tiles", "group_dispatch", "group_sync")]
+        self.targets += [(pipe_cls, "_build_segment"), (det_module, boxes_fn)]
+        self.groups, self.db_chunks, self.segment_of, self._cut = [], [], {}, []
+
+    def __enter__(self):
+        self.saved = [(obj, n, getattr(obj, n)) for obj, n in self.targets]
+        collect, dispatch, sync, build, boxes = (fn for _, _, fn in self.saved)
+        rec = self
+
+        def collect_tiles(ocr, *a, **kw):
+            out = collect(ocr, *a, **kw)
+            rec._cut.append(out)
+            return out
+
+        def group_dispatch(ocr, items, submit=None):
+            del rec._cut[:]
+            state = dispatch(ocr, items, submit)
+            rec.groups.append({"ocr": ocr, "state": state, "cut": rec._cut[:],
+                               "db": [set(it.get("db_override") or ()) for it in items],
+                               "results": None})
+            return state
+
+        def group_sync(ocr, state):
+            out = sync(ocr, state)
+            for g in rec.groups:
+                if g["state"] is state:
+                    g["results"], g["state"] = out, None
+            return out
+
+        def build_segment(pipe, region, f, ocr, *a, **kw):
+            seg = build(pipe, region, f, ocr, *a, **kw)
+            if seg is not None:
+                rec.segment_of[id(ocr)] = seg.segment_id
+            return seg
+
+        def boxes_fn(model, chunk, thresh):
+            import numpy as np
+
+            rec.db_chunks.append({"model": model, "views": np.array(chunk),
+                                  "prob_thresh": float(thresh)})
+            return boxes(model, chunk, thresh)
+
+        for (obj, n), fn in zip(self.targets, (collect_tiles, group_dispatch,
+                                               group_sync, build_segment, boxes_fn)):
+            setattr(obj, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, n, fn in self.saved:
+            setattr(obj, n, fn)
+
+    def batches(self):
+        """One dict a recognizer dispatch: its stacked (N, 32, W) uint8
+        tiles as the pipeline stacked them, the OCR object that ran them, a
+        key a tile that names it alike in any run of the same book
+        (dispatch, item, crop, line box, the box's occurrence, part) and a
+        label a tile (the segment id of its crop, or None for a crop the
+        pipeline kept no segment of, its line box, and whether the DB
+        detector drew that box)."""
+        import numpy as np
+
+        out = []
+        for g, group in enumerate(self.groups):
+            tiles, keys, labels = [], [], []
+            for it, (item_tiles, owners, boxes, parts) in enumerate(group["cut"]):
+                tiles.extend(item_tiles)
+                seen = {}
+                results = group["results"][it]
+                for owner, box, (n, _) in zip(owners, boxes, parts):
+                    box = [int(v) for v in box]
+                    line = (g, it, int(owner), tuple(box))
+                    seen[line] = seen.get(line, 0) + 1
+                    for part in range(n):
+                        keys.append(line + (seen[line], part))
+                        labels.append({"segment": self.segment_of.get(id(results[owner])),
+                                       "box": box, "db": owner in group["db"][it]})
+            if len(tiles) != len(keys):
+                raise RuntimeError(f"dispatch {g}: {len(tiles)} tiles, "
+                                   f"{len(keys)} line parts")
+            if tiles:
+                out.append({"ocr": group["ocr"], "tiles": np.stack(tiles),
+                            "keys": keys, "labels": labels})
+        return out
+
+
+# The OCR yardstick: how a candidate run's OCR may differ from a reference
+# run's on the same book (the port on the CPU against the JAX pipeline in
+# tests/test_torch_diverse.py, the card against the CPU in the e2e_diverse
+# phase). Both packages' models run in bf16 in the pipeline and also in
+# float32 here, on the tiles and DB views each run recorded (OCRRecorder).
+# (a) In float32 the two runs compute the same function. (b) In bf16 the
+# candidate stands no farther from the reference than the reference stands
+# from its own float32 answer. (c) A key of the segment JSON outside
+# ALLOWED_DIFFERENCES, or a cell of the CSV, may differ only where it reads
+# a line whose bf16 greedy paths differ (or whose DB box differs, under (b)
+# of the DB maps); a line whose paths agree keeps the table's confidence
+# bound unless the reference's own bf16 confidence of that line differs
+# from its float32 one by at least as much. Its only two constants:
+#
+# (a) the largest |logit difference| between the two runs' float32 models,
+# on a recognizer tile and on a DB map; a frame's float32 greedy choice, and
+# a DB pixel's side of the threshold, may differ only within it of a tie
+# (measured 2.9e-5 between the port's and the JAX recognizer on the diverse
+# book, CPU)
+F32_LOGIT_BOUND = 1e-3
+# (b) the candidate's |bf16 - float32| logit error (the largest of a tile)
+# over the reference's, at most, at each of ERROR_QUANTILES of the tiles
+# (measured 0.97-0.995, port against JAX on the diverse book, CPU)
+ERROR_RATIO_MAX = 1.10
+ERROR_QUANTILES = (50, 90, 99, 100)
+# (c) the keys that read a segment's OCR lines (the path after
+# "segments[i]."): its lines' keys, judged line by line ...
+OCR_LINE_KEYS = r"ocr_result\.blocks(\[\d+\].*)?"
+# ... and the segment's own OCR keys and the text leaves derived from its
+# lines' texts (node texts, axis labels, tick labels, legend items,
+# structured text), excused where one of its lines is; a node's box and id,
+# the counts and ranges stay exact
+OCR_SEGMENT_KEYS = (
+    r"ocr_result\.(raw_text|confidence|node_texts(\[\d+\])?"
+    r"|legend_items(\[\d+\])?|tick_labels\.[xy]_axis(\[\d+\])?"
+    r"|axis_labels\.[xy])"
+    r"|chart_data\.(tick_labels\.[xy]_axis(\[\d+\])?|legend_items(\[\d+\])?"
+    r"|axes_info\.[xy]_axis\.label)"
+    r"|chart_details\.(tick_labels\.[xy]_axis(\[\d+\])?|legend(\[\d+\])?"
+    r"|axes\.[xy]_axis\.label)"
+    r"|diagram_(data|details)\.nodes\[\d+\]\.text"
+    r"|extracted_text_structured(\.[^.\[]+(\[\d+\])?)?")
+OCR_CSV_COLUMNS = ("ocr_text",)  # the summary CSV's cell of raw_text
+
+
+def port_tile_logits(model, tiles, line_batch: int):
+    """(N, 32, W) uint8 tiles -> (N, W/4, C) float32 logits of the port's
+    recognizer ``model`` on its device, in chunks of ``line_batch`` padded
+    with white tiles as ``recognize_dispatch`` pads them, normalised as
+    ``_decode`` normalises them."""
+    import numpy as np
+    import torch
+
+    dev = next(model.parameters()).device
+    out = []
+    with torch.inference_mode():
+        for start in range(0, tiles.shape[0], line_batch):
+            chunk = tiles[start:start + line_batch]
+            pad = np.full((line_batch - chunk.shape[0],) + chunk.shape[1:], 255,
+                          np.uint8)
+            x = torch.from_numpy(np.concatenate([chunk, pad])).to(dev)
+            logits = model(x.to(torch.float32)[:, None] / 255.0)
+            out.append(logits[:chunk.shape[0]].float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def port_evaluation(rec: OCRRecorder, f32_model, f32_det):
+    """The port run's recorded batches, each with its bf16 logits (the
+    run's own model), float32 logits (``f32_model``) and bf16 greedy
+    paths; and its DB chunks, each with the run's bf16 logits and
+    ``f32_det``'s float32 logits."""
+    from synapta_tpu_torch.models.detector import db_logits
+
+    batches = rec.batches()
+    for b in batches:
+        lb = b["ocr"].cfg.line_batch
+        b["bf16"] = port_tile_logits(b["ocr"].model, b["tiles"], lb)
+        b["f32"] = port_tile_logits(f32_model, b["tiles"], lb)
+        b["paths"] = b["bf16"].argmax(-1)  # as _decode takes them
+    db = [{"views": c["views"], "prob_thresh": c["prob_thresh"],
+           "bf16": db_logits(c["model"], c["views"]).float().cpu().numpy(),
+           "f32": db_logits(f32_det, c["views"]).float().cpu().numpy()}
+          for c in rec.db_chunks]
+    return batches, db
+
+
+def db_yardstick(ref, cand):
+    """(a) and (b) on the DB maps of two runs' DB chunks (each a dict:
+    ``views`` (B, S, S) uint8, ``prob_thresh``, ``bf16`` and ``f32``
+    (B, S/2, S/2) logits). Views are paired in order and must be equal;
+    the padding views (all white) are left out. A mask is the pipeline's
+    ``sigmoid(logit) > prob_thresh``; the closing after it is exact, so
+    only the threshold lets a float difference through."""
+    import numpy as np
+    import torch
+
+    rep = {"chunks": [len(ref), len(cand)], "views": 0, "inputs_equal": True,
+           "f32_max_abs_logit_diff": 0.0, "f32_flipped_pixels": 0,
+           "f32_flips_off_the_threshold": 0, "bf16_flipped_pixels": 0,
+           "bf16_views_flipped": 0, "ref_bf16_vs_f32_flipped_pixels": 0,
+           "cand_bf16_vs_f32_flipped_pixels": 0, "bf16_max_abs_logit_diff": 0.0}
+    if len(ref) != len(cand):
+        rep.update(ok_a=False, ok_b=False)
+        return rep
+    for r, c in zip(ref, cand):
+        if not np.array_equal(r["views"], c["views"]):
+            rep["inputs_equal"] = False
+            continue
+        p = r["prob_thresh"]
+        real = (r["views"] != 255).reshape(len(r["views"]), -1).any(1)
+        rep["views"] += int(real.sum())
+        lg = {"r16": r["bf16"][real], "r32": r["f32"][real],
+              "c16": c["bf16"][real], "c32": c["f32"][real]}
+        m = {k: (torch.sigmoid(torch.from_numpy(np.ascontiguousarray(v))) > p)
+             .numpy() for k, v in lg.items()}
+        thr = math.log(p / (1.0 - p))
+        near = ((np.abs(lg["r32"] - thr) <= F32_LOGIT_BOUND)
+                | (np.abs(lg["c32"] - thr) <= F32_LOGIT_BOUND))
+        flips32 = m["r32"] != m["c32"]
+        flips16 = m["r16"] != m["c16"]
+        rep["f32_max_abs_logit_diff"] = max(rep["f32_max_abs_logit_diff"], float(
+            np.abs(lg["r32"] - lg["c32"]).max(initial=0.0)))
+        rep["bf16_max_abs_logit_diff"] = max(rep["bf16_max_abs_logit_diff"], float(
+            np.abs(lg["r16"] - lg["c16"]).max(initial=0.0)))
+        rep["f32_flipped_pixels"] += int(flips32.sum())
+        rep["f32_flips_off_the_threshold"] += int((flips32 & ~near).sum())
+        rep["bf16_flipped_pixels"] += int(flips16.sum())
+        rep["bf16_views_flipped"] += int(flips16.reshape(len(flips16), -1)
+                                         .any(1).sum())
+        rep["ref_bf16_vs_f32_flipped_pixels"] += int((m["r16"] != m["r32"]).sum())
+        rep["cand_bf16_vs_f32_flipped_pixels"] += int((m["c16"] != m["c32"]).sum())
+    rep["ok_a"] = (rep["inputs_equal"]
+                   and rep["f32_max_abs_logit_diff"] <= F32_LOGIT_BOUND
+                   and rep["f32_flips_off_the_threshold"] == 0)
+    rep["ok_b"] = rep["bf16_flipped_pixels"] <= rep["ref_bf16_vs_f32_flipped_pixels"]
+    return rep
+
+
+def ocr_yardstick(ref, cand, db=None) -> dict:
+    """(a) and (b) on the recognizer, over two runs' recorded batches (each
+    a dict as ``OCRRecorder.batches`` makes it, with ``bf16`` and ``f32``
+    logits and the bf16 greedy ``paths``), and on the DB maps (``db``, the
+    report of ``db_yardstick``, or None where no DB chunk ran). Tiles are
+    paired by key and must be equal. A tile of one run without a partner in
+    the other (its DB line box differs) is excused only where the DB
+    detector drew its box and the DB maps meet (a) and (b); ``unpaired``
+    lists each such line once. Returns the
+    report: the counts and quantiles, every excused tile (its segment, box,
+    both texts and the frames that differ, with each model's two most likely
+    characters and its logit gap between them), ``excused_lines`` and
+    ``confidence_lines`` (segment, box and the reference's own bf16 against
+    float32 confidence difference of each line whose paths agree but whose
+    confidence passes the table's bound and no farther than that) for
+    ``judge_keys``, and ``ok``."""
+    import numpy as np
+
+    from synapta_tpu_torch.models.charset import BLANK, decode_greedy_batch
+
+    def flat(batches):
+        keys = [k for b in batches for k in b["keys"]]
+        run = {n: np.concatenate([b[n] for b in batches])
+               for n in ("tiles", "bf16", "f32", "paths")}
+        run["labels"] = [lab for b in batches for lab in b["labels"]]
+        run["index"] = {k: i for i, k in enumerate(keys)}
+        run["keys"] = keys
+        return run
+
+    R, C = flat(ref), flat(cand)
+    ri = np.array([R["index"][k] for k in R["keys"] if k in C["index"]], np.int64)
+    ci = np.array([C["index"][k] for k in R["keys"] if k in C["index"]], np.int64)
+    unpaired = []  # a line a run, with its count of tiles
+    for name, run, other in (("ref", R, C), ("cand", C, R)):
+        for k, i in run["index"].items():
+            if k not in other["index"]:
+                line = dict(run["labels"][i], run=name, tiles=1)
+                if unpaired and {**unpaired[-1], "tiles": 1} == line:
+                    unpaired[-1]["tiles"] += 1
+                else:
+                    unpaired.append(line)
+    tiles_differ = [R["labels"][i] for i, j in zip(ri, ci)
+                    if not np.array_equal(R["tiles"][i], C["tiles"][j])]
+
+    def gap(logits):  # top-1 minus top-2 logit a frame
+        top = np.sort(logits, axis=-1)[..., -2:]
+        return top[..., 1] - top[..., 0]
+
+    def char(c):
+        return "blank" if c == BLANK else decode_greedy_batch(np.array([[c]]))[0]
+
+    def top2(logits):
+        a, b = np.argsort(-logits)[:2]
+        return [char(a), char(b)], float(logits[a] - logits[b])
+
+    # (a) float32: the same function
+    r32, c32 = R["f32"][ri], C["f32"][ci]
+    f32_diff = np.abs(r32 - c32).max(axis=(1, 2), initial=0.0)
+    r32p, c32p = r32.argmax(-1), c32.argmax(-1)
+    differ = r32p != c32p
+    tie = np.minimum(gap(r32), gap(c32)) <= F32_LOGIT_BOUND
+    a = {"tiles": len(ri), "max_abs_logit_diff": float(f32_diff.max(initial=0.0)),
+         "paths_differ": int(differ.any(-1).sum()),
+         "frames_differ": int(differ.sum()),
+         "frames_differ_at_a_tie": int((differ & tie).sum())}
+    a["ok"] = (not tiles_differ and a["max_abs_logit_diff"] <= F32_LOGIT_BOUND
+               and a["frames_differ"] == a["frames_differ_at_a_tie"])
+    del r32, c32
+
+    # (b) bf16: no farther from the reference than it is from itself
+    rp, cp = R["paths"][ri], C["paths"][ci]
+    rt, ct = decode_greedy_batch(rp), decode_greedy_batch(cp)
+    rt32, ct32 = decode_greedy_batch(r32p), decode_greedy_batch(c32p)
+    path_differs = (rp != cp).any(-1)
+    r_err = np.abs(R["bf16"][ri] - R["f32"][ri]).max(axis=(1, 2), initial=0.0)
+    c_err = np.abs(C["bf16"][ci] - C["f32"][ci]).max(axis=(1, 2), initial=0.0)
+    q_r = np.percentile(r_err, ERROR_QUANTILES) if len(ri) else np.zeros(4)
+    q_c = np.percentile(c_err, ERROR_QUANTILES) if len(ci) else np.zeros(4)
+    ratio = [float(x / y) if y > 0 else (math.inf if x > 0 else 1.0)
+             for x, y in zip(q_c, q_r)]
+    b = {"text_differs": sum(x != y for x, y in zip(ct, rt)),
+         "paths_differ": int(path_differs.sum()),
+         "ref_bf16_vs_f32_text_differs": sum(x != y for x, y in zip(rt, rt32)),
+         "ref_bf16_vs_f32_paths_differ": int((rp != r32p).any(-1).sum()),
+         "cand_bf16_vs_f32_text_differs": sum(x != y for x, y in zip(ct, ct32)),
+         "cand_bf16_vs_f32_paths_differ": int((cp != c32p).any(-1).sum()),
+         "error_quantiles": {"q": list(ERROR_QUANTILES),
+                             "ref": [float(x) for x in q_r],
+                             "cand": [float(x) for x in q_c], "ratio": ratio}}
+    b["ok"] = (b["text_differs"] <= b["ref_bf16_vs_f32_text_differs"]
+               and all(x <= ERROR_RATIO_MAX for x in ratio))
+
+    def confidence(logits, paths):  # a tile's line confidence, 0..100
+        z = logits - logits.max(-1, keepdims=True)
+        p = np.take_along_axis(np.exp(z), paths[..., None], -1)[..., 0] / np.exp(
+            z).sum(-1)
+        nonblank = paths != BLANK
+        return 100.0 * np.where(nonblank, p, 0.0).sum(-1) / np.maximum(
+            nonblank.sum(-1), 1)
+
+    excused, lines = [], set()
+    for n in np.nonzero(path_differs)[0]:
+        i, j = ri[n], ci[n]
+        lab = R["labels"][i]
+        frames = []
+        for f in np.nonzero(R["paths"][i] != C["paths"][j])[0]:
+            (r_top, r_gap), (c_top, c_gap) = top2(R["bf16"][i, f]), top2(C["bf16"][j, f])
+            frames.append({"frame": int(f), "ref": r_top, "ref_logit_gap": r_gap,
+                           "cand": c_top, "cand_logit_gap": c_gap})
+        excused.append({"segment": lab["segment"], "box": lab["box"],
+                        "texts": [rt[n], ct[n]], "f32_texts": [rt32[n], ct32[n]],
+                        "frames": frames})
+        lines.add((lab["segment"], tuple(lab["box"])))
+    db_ok = db is not None and db["ok_a"] and db["ok_b"]
+    unpaired_ok = not unpaired or (db_ok and all(u["db"] for u in unpaired))
+    for u in unpaired:
+        lines.add((u["segment"], tuple(u["box"])))
+
+    # (c) a line's confidence where the greedy paths of all its parts agree,
+    # as merge_parts folds its parts' (the mean of those with text): the
+    # candidate's against the reference's, and the reference's bf16 against
+    # its own float32 answer on the same line. A line farther apart than the
+    # table's block bound is listed, and excused where the reference's own
+    # difference is at least as large.
+    conf = {"ref": (confidence(R["bf16"][ri], rp), rt),
+            "cand": (confidence(C["bf16"][ci], cp), ct),
+            "ref_f32": (confidence(R["f32"][ri], r32p), rt32)}
+    parts = {}
+    for n, i in enumerate(ri):
+        parts.setdefault(R["keys"][i][:5], []).append(n)
+    over, largest = [], 0.0
+    for ns in parts.values():
+        lab = R["labels"][ri[ns[0]]]
+        if path_differs[ns].any() or (lab["segment"], tuple(lab["box"])) in lines:
+            continue
+        v = {}
+        for k, (c, texts) in conf.items():
+            kept = [float(c[n]) for n in ns if texts[n].strip()]
+            v[k] = float(np.mean(kept)) if kept else 0.0
+        largest = max(largest, abs(v["cand"] - v["ref"]))
+        if allowed_difference("segments[0].ocr_result.blocks[0].confidence",
+                              v["ref"], v["cand"]) is None:
+            over.append({"segment": lab["segment"], "box": lab["box"], **v,
+                         "excused": abs(v["cand"] - v["ref"])
+                         <= abs(v["ref"] - v["ref_f32"])})
+    b["confidence"] = {"max_abs_diff": largest, "lines_over_table": over}
+    report = {"tiles": [len(R["keys"]), len(C["keys"])], "paired": len(ri),
+              "tiles_differ": tiles_differ, "unpaired": unpaired,
+              "float32": a, "bf16": b, "db": db, "excused_tiles": excused,
+              "excused_lines": sorted(lines, key=str),
+              "confidence_lines": [(o["segment"], o["box"],
+                                    abs(o["ref"] - o["ref_f32"]))
+                                   for o in over if o["excused"]]}
+    report["ok"] = bool(a["ok"] and b["ok"] and unpaired_ok
+                        and (db is None or db_ok))
+    return report
+
+
+def judge_keys(out_ref: str, out_cand: str, report: dict, book_id: str = "smoke"):
+    """(c): every key of the two runs' segment JSON outside
+    ALLOWED_DIFFERENCES, and every cell of the CSVs, is equal unless it
+    reads a line that ``ocr_yardstick``'s ``report`` excused (its
+    ``excused_lines``, pairs of segment id and line box). A segment's blocks
+    are compared with the excused lines' blocks left out of both lists
+    (under the table); its OCR_SEGMENT_KEYS and its OCR_CSV_COLUMNS cell may
+    differ where it has an excused line. A line of the report's
+    ``confidence_lines`` may pass the table's confidence bound by as much as
+    the reference's own bf16 confidence of that line differs from its float32
+    one; its segment's mean is held to the table with that line's
+    difference taken out. -> {"faults": [[path, ref, cand]], "excused_keys":
+    n, "excused_segments": {index: lines}}"""
+    import csv
+
+    P, Q = payload(out_ref, book_id), payload(out_cand, book_id)
+    index = {s["segment_id"]: i for i, s in enumerate(P.get("segments", []))}
+    boxes, own = {}, {}
+    for sid, box in report["excused_lines"]:
+        if sid in index:
+            boxes.setdefault(index[sid], set()).add(tuple(box))
+    for sid, box, d in report["confidence_lines"]:
+        if sid in index:
+            lines = own.setdefault(index[sid], {})
+            lines[tuple(box)] = min(d, lines.get(tuple(box), d))
+
+    def blocks(seg):
+        return seg["ocr_result"]["blocks"] if seg.get("ocr_result") else []
+
+    shift = {}  # a segment's mean confidence: what its own-excused lines moved
+    for s, lines in own.items():
+        a, b = blocks(P["segments"][s]), blocks(Q["segments"][s])
+        if len(a) == len(b) and a:
+            shift[s] = sum(y["confidence"] - x["confidence"] for x, y in zip(a, b)
+                           if tuple(x["bbox"]) in lines) / (100.0 * len(a))
+
+    def tolerated(path, a, b, listed=None):
+        if allowed_difference(path, a, b) is not None:
+            return True
+        if not (isinstance(a, float) and isinstance(b, float)):
+            return False
+        m = re.fullmatch(r"segments\[(\d+)\]\.ocr_result\.(blocks\[(\d+)\]\.)?"
+                         r"confidence", path)
+        if not m or int(m.group(1)) not in own:
+            return False
+        s = int(m.group(1))
+        if m.group(2) is None:
+            return s in shift and allowed_difference(path, a, b - shift[s]) is not None
+        block = (listed or blocks(P["segments"][s]))[int(m.group(3))]
+        d = own[s].get(tuple(block["bbox"]))
+        return d is not None and abs(a - b) <= d
+
+    faults, excused = [], 0
+    for path, a, b in json_differences(P, Q):
+        if tolerated(path, a, b):
+            excused += allowed_difference(path, a, b) is None
+            continue
+        m = re.fullmatch(r"segments\[(\d+)\]\.(.*)", path)
+        if m and int(m.group(1)) in boxes and (
+                re.fullmatch(OCR_LINE_KEYS, m.group(2))
+                or re.fullmatch(OCR_SEGMENT_KEYS, m.group(2))):
+            excused += not re.fullmatch(OCR_LINE_KEYS, m.group(2))
+            continue
+        faults.append([path, a, b])
+    for s, lines in boxes.items():
+        kept = [[blk for blk in seg["segments"][s]["ocr_result"]["blocks"]
+                 if tuple(blk["bbox"]) not in lines] for seg in (P, Q)]
+        n_left = sum(len(seg["segments"][s]["ocr_result"]["blocks"]) - len(k)
+                     for seg, k in zip((P, Q), kept))
+        excused += n_left
+        for path, a, b in json_differences(
+                *kept, f"segments[{s}].ocr_result.blocks"):
+            if not tolerated(path, a, b, kept[0]):
+                faults.append([path + " (excused lines left out)", a, b])
+    rows = []
+    for out in (out_ref, out_cand):
+        with open(os.path.join(out, f"{book_id}_visual_summary.csv"),
+                  newline="") as f:
+            rows.append(list(csv.reader(f)))
+    if len(rows[0]) != len(rows[1]) or not rows[0]:
+        faults.append(["csv rows", len(rows[0]), len(rows[1])])
+    else:
+        header = rows[0][0]
+        for r, (x, y) in enumerate(zip(*rows)):
+            if len(x) != len(y):
+                faults.append([f"csv[{r}]", x, y])
+            for c, (u, v) in enumerate(zip(x, y)):
+                if u == v:
+                    continue
+                if r >= 1 and r - 1 in boxes and header[c] in OCR_CSV_COLUMNS:
+                    excused += 1
+                else:
+                    faults.append([f"csv[{r}][{header[c]}]", u, v])
+    return {"faults": faults, "excused_keys": excused,
+            "excused_segments": {s: sorted(v) for s, v in sorted(boxes.items())}}
 
 
 def helper_module(name: str, folder: str = "tests"):
@@ -1409,6 +1916,72 @@ def main() -> int:
         return fail(f"crop book: cuda against cpu: {crop}, outside {outside[:5]}, "
                     f"csv equal {csv_equal}")
 
+    # ------------------------------------------------- 8e. diverse book
+    # make_diverse_book(seed=5), the book tests/test_torch_diverse.py holds
+    # to the JAX pipeline: the card against the CPU under the OCR yardstick,
+    # the CPU's bf16 run the reference, each run recorded and its tiles and
+    # DB views evaluated again by the bf16 and the float32 models on its own
+    # device; counters at 0 before the card's run and read after it
+    from synapta_tpu_torch.io.pdf_writer import make_diverse_book
+    from synapta_tpu_torch.models.msgpack_io import load_params
+    from synapta_tpu_torch.models.recognizer import recognizer_from_flax
+    from synapta_tpu_torch.ocr.processor import TorchOCR
+
+    t = time.perf_counter()
+    div_pdf = os.path.join(tmp, "diverse.pdf")
+    make_diverse_book(div_pdf, seed=DIVERSE_SEED)
+    div = {}
+    for device in ("cuda", "cpu"):
+        rec = OCRRecorder(TorchOCR, VisualSegmentationPipeline, D, "boxes_device")
+        if device == "cuda":
+            connected_components_cuda.launches = 0
+            fused_edge_stats_cuda.launches = 0
+            del routes_seen[:]
+            chunks0 = TIMERS.counts.get("features_dispatch", 0)
+        with rec:
+            pipe, segs, wall = run(div_pdf, os.path.join(tmp, f"div_{device}"), device)
+        row = {"segments": len(segs), "errors": pipe.stats.errors, "wall_s": wall,
+               "db_chunks": len(rec.db_chunks)}
+        if device == "cuda":
+            row.update(analyze_chunks=TIMERS.counts.get("features_dispatch", 0) - chunks0,
+                       launches={"cc": connected_components_cuda.launches,
+                                 "edge_stats": fused_edge_stats_cuda.launches},
+                       edge_stats_route=edge_launches())
+            div_launches = row["launches"]
+            edge_by_path["diverse10"] = row["edge_stats_route"]
+        te = time.perf_counter()
+        batches, db = port_evaluation(
+            rec, recognizer_from_flax(load_params(), dtype=torch.float32,
+                                      device=device),
+            D.detector_from_flax(D.load_det_params(), dtype=torch.float32,
+                                 device=device))
+        row["evaluation_s"] = time.perf_counter() - te
+        div[device] = {"row": row, "segments": segs, "batches": batches, "db": db}
+    div_db = (db_yardstick(div["cpu"]["db"], div["cuda"]["db"])
+              if div["cpu"]["db"] or div["cuda"]["db"] else None)
+    div_report = ocr_yardstick(div["cpu"]["batches"], div["cuda"]["batches"], div_db)
+    div_keys = judge_keys(os.path.join(tmp, "div_cpu"), os.path.join(tmp, "div_cuda"),
+                          div_report)
+    div_same = ([key(s) for s in div["cuda"]["segments"]]
+                == [key(s) for s in div["cpu"]["segments"]])
+    emit("e2e_diverse", seed=DIVERSE_SEED,
+         runs={d: v["row"] for d, v in div.items()}, cuda_equals_cpu=div_same,
+         yardstick={k: v for k, v in div_report.items() if k != "excused_lines"},
+         bounds={"f32_logit": F32_LOGIT_BOUND, "error_ratio_max": ERROR_RATIO_MAX},
+         key_faults=div_keys["faults"][:20], excused_keys=div_keys["excused_keys"],
+         excused_segments=div_keys["excused_segments"],
+         elapsed_phase_s=time.perf_counter() - t, **CARD)
+    cuda_row = div["cuda"]["row"]
+    if (not div_same or cuda_row["errors"] or div["cpu"]["row"]["errors"]
+            or not div_report["ok"] or div_keys["faults"]
+            or cuda_row["edge_stats_route"] is None or cuda_row["analyze_chunks"] == 0
+            or cuda_row["db_chunks"] == 0
+            or div_launches["cc"] < 4 * cuda_row["analyze_chunks"] + cuda_row["db_chunks"]
+            or div_launches["edge_stats"] != cuda_row["analyze_chunks"]):
+        return fail(f"diverse book: cuda against cpu: {cuda_row}, yardstick ok "
+                    f"{div_report['ok']}, key faults {div_keys['faults'][:5]}")
+    del div, div_report
+
     # -------------------------------------------------------- 9. training
     # no kernel of its own: convs and matmuls through cuDNN/cuBLAS, the CTC
     # loss through torch's, as the JAX package leaves them to XLA and optax
@@ -1837,8 +2410,9 @@ def main() -> int:
 
     # launches: the 64-page book's, the 16-page scanned book's, the 2-shard
     # 64-page book's, the LLM-on 8-page book's, the two foreign books', the
-    # six sweep configurations' and the crop book's runs; ms, plain_ms and
-    # bound_ms per analyze chunk of 16 crops (the CC row's four analyze
+    # six sweep configurations', the crop book's and the diverse book's
+    # runs; ms, plain_ms and bound_ms per analyze chunk of 16 crops (the CC
+    # row's four analyze
     # sites; the DB site per DB chunk under "db_site"; a chunk as two half
     # shards on two streams under "dp2"; chunks of 32 and 64 crops under
     # "at_batch")
@@ -1857,7 +2431,8 @@ def main() -> int:
          "launches": (launches["cc"] + scan_launches["cc"] + dp_launches["cc"]
                       + llm_launches["cc"] + sum(
                           b["launches"]["cc"] for b in books.values())
-                      + sum(sweep_cc.values()) + crop_launches["cc"]),
+                      + sum(sweep_cc.values()) + crop_launches["cc"]
+                      + div_launches["cc"]),
          "max_abs_err": cc_err,
          "ms": cc_ms, "plain_ms": cc_plain_ms, "bound_ms": cc_bound_ms,
          "bound_by": cc_bound_by, "library_ms": None,
@@ -1868,7 +2443,8 @@ def main() -> int:
                               "book8_llm_on": llm_launches["cc"],
                               **{f"foreign_{k}": b["launches"]["cc"]
                                  for k, b in books.items()},
-                              **sweep_cc, "crop_book": crop_launches["cc"]},
+                              **sweep_cc, "crop_book": crop_launches["cc"],
+                              "diverse10": div_launches["cc"]},
          "db_native_launches": native_cc_launches,
          "dp2": {"shape": dp_rows[0]["shape"], "ms": dp_cc_ms,
                  "plain_ms": dp_cc_plain_ms},
@@ -1884,7 +2460,8 @@ def main() -> int:
          "launches": (launches["edge_stats"] + scan_launches["edge_stats"]
                       + dp_launches["edge_stats"] + llm_launches["edge_stats"]
                       + sum(b["launches"]["edge_stats"] for b in books.values())
-                      + sum(sweep_edge.values()) + crop_launches["edge_stats"]),
+                      + sum(sweep_edge.values()) + crop_launches["edge_stats"]
+                      + div_launches["edge_stats"]),
          "max_abs_err": edge["default"]["max_abs_err"],
          "ms": edge["default"]["ms"], "plain_ms": edge["default"]["plain_ms"],
          "bound_ms": edge["default"]["bound_ms"],

@@ -2,7 +2,7 @@
 """Op-by-op bfloat16 parity of the port's two models against flax, on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/bf16_op_parity.py [--model detector|recognizer|both]
-        [--json PATH] [--xla-order]
+        [--json PATH] [--xla-order] [--float32] [--views PATH] [--tiles PATH]
 
 Runs flax's model (the JAX package's modules and shipped weights, in
 bfloat16, jitted as the JAX package runs it) with ``capture_intermediates``
@@ -21,6 +21,11 @@ Inputs, drawn by the repo's own generators:
     12) and ``make_scanned_book(2, seed=2)`` (segment 1, block 18), cut by
     the port's pipeline on the CPU (``--tiles`` takes an .npy of uint8
     (N, 32, 384) tiles instead).
+
+``--float32`` runs the detector in float32 on both sides (the float32 part
+of the OCR yardstick, chip_smoke.py). ``--views`` takes an .npy of uint8
+(B, S, S) DB views instead of the scanned canvas, for example those that
+``scripts/near_tie_frames.py --save-views`` records from a book's run.
 
 ``--xla-order`` adds, for each ConvBlock, the block computed from XLA's own
 float32 conv of the same operands (``jax.lax.conv_general_dilated``) and
@@ -154,28 +159,38 @@ def _xla_conv(conv, x) -> torch.Tensor:
     return _t(np.asarray(y))
 
 
-def detector_ops(gray: np.ndarray, xla_order: bool = False) -> list:
-    """The op rows of the DB detector on (B, S, S) uint8 luma ``gray``."""
+def detector_ops(gray: np.ndarray, xla_order: bool = False,
+                 float32: bool = False) -> list:
+    """The op rows of the DB detector on (B, S, S) uint8 luma ``gray``;
+    ``float32``: both models in float32 (each ConvBlock's row then also
+    gives the smallest var / mean² of a GroupNorm group over its input, the
+    conditioning of flax's fast variance E[x²] - E[x]²)."""
     import jax.numpy as jnp
 
     from synapta_tpu.models import detector as jdet
     from synapta_tpu_torch.models import detector as tdet
 
+    dt, tag = (torch.float32, "f32 ") if float32 else (BF16, "")
     tree = tdet.load_det_params()
     x = (gray.astype(np.float32) / 255.0)[..., None]
-    want, cap = flax_capture(jdet.Detector(), tree, jnp.asarray(x))
-    m = tdet.detector_from_flax(tree, dtype=BF16, device="cpu")
+    want, cap = flax_capture(jdet.Detector(dtype=jnp.float32 if float32 else
+                                           jnp.bfloat16), tree, jnp.asarray(x))
+    m = tdet.detector_from_flax(tree, dtype=dt, device="cpu")
     rows = []
     with torch.no_grad():
         for i in range(len(tdet.Detector.BLOCKS)):
             b, blk = cap[f"ConvBlock_{i}"], m.blocks[i]
-            xin = _t(b["__in__"][0]).to(BF16)
+            xin = _t(b["__in__"][0]).to(dt)
             c = tdet.same_conv(blk.conv, xin, out_dtype=torch.float32)
-            rows.append(compare(f"ConvBlock_{i}.conv", c.to(BF16),
-                                _t(b["Conv_0"]["__call__"][0])))
-            rows.append(compare(f"ConvBlock_{i} (conv sum + GroupNorm + relu)",
+            want_c = _t(b["Conv_0"]["__call__"][0])
+            rows.append(compare(f"{tag}ConvBlock_{i}.conv", c.to(dt), want_c))
+            rows.append(compare(f"{tag}ConvBlock_{i} (conv sum + GroupNorm + relu)",
                                 blk(xin), _t(b["__call__"][0])))
-            if xla_order:
+            if float32:
+                g = want_c.double().reshape(want_c.shape[0], blk.groups, -1)
+                rows[-1]["gn_var_over_mean2_min"] = float(
+                    (g.var(-1, unbiased=False) / g.mean(-1).square()).min())
+            if xla_order and not float32:  # the bf16 model's XLA order
                 rows.append(compare(
                     f"ConvBlock_{i} with XLA's conv sum and summation order",
                     _group_norm_xla_order(_xla_conv(blk.conv, xin), blk),
@@ -186,14 +201,14 @@ def detector_ops(gray: np.ndarray, xla_order: bool = False) -> list:
         lat = {}
         for i, src in lat_src.items():
             lat[i] = _t(cap[f"Conv_{i}"]["__call__"][0])
-            rows.append(compare(f"Conv_{i} (lateral)",
-                                tdet.same_conv(m.lat[i], src.to(BF16)), lat[i]))
+            rows.append(compare(f"{tag}Conv_{i} (lateral)",
+                                tdet.same_conv(m.lat[i], src.to(dt)), lat[i]))
         for name, a, up_src, like, into in (
                 ("p3", 0, _t(cap["Conv_1"]["__call__"][0]), block_out[5], 8),
                 ("p2", 2, block_out[8], block_out[3], 9),
                 ("p1", 3, block_out[9], block_out[1], 10)):
-            got = lat[a].to(BF16) + tdet.upsample_like(up_src.to(BF16), like)
-            rows.append(compare(f"{name} = lateral + upsample",
+            got = lat[a].to(dt) + tdet.upsample_like(up_src.to(dt), like)
+            rows.append(compare(f"{tag}{name} = lateral + upsample",
                                 got, _t(cap[f"ConvBlock_{into}"]["__in__"][0])))
         rows.append(compare("Conv_4 (head, f32)",
                             tdet.same_conv(m.head, block_out[10]),
@@ -364,11 +379,15 @@ def main(argv=None) -> int:
                     default="both")
     ap.add_argument("--tiles", help=".npy of uint8 (N, 32, 384) line tiles")
     ap.add_argument("--xla-order", action="store_true")
+    ap.add_argument("--float32", action="store_true",
+                    help="the detector in float32 on both sides")
+    ap.add_argument("--views", help=".npy of uint8 (B, S, S) DB views")
     ap.add_argument("--json", help="write the rows here")
     args = ap.parse_args(argv)
     out = {}
     if args.model in ("detector", "both"):
-        out["detector"] = detector_ops(scanned_canvas0(), args.xla_order)
+        gray = np.load(args.views) if args.views else scanned_canvas0()
+        out["detector"] = detector_ops(gray, args.xla_order, args.float32)
         report("detector", out["detector"])
     if args.model in ("recognizer", "both"):
         tiles = np.load(args.tiles) if args.tiles else named_tiles()

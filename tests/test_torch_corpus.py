@@ -8,26 +8,22 @@ JAX pipeline, on the CPU.
   line detector and the CC kernel's fifth call site) and the fontTools book
   (PDF 1.5 xref and object streams, a CID TrueType; 4 pages). Each passes
   the JAX test's own checks on the port, and the two runs' segment JSON and
-  CSV are equal under ``chip_smoke.ALLOWED_DIFFERENCES`` and ``KNIFE_EDGE``,
-  one text line of the Type3 book whose recognizer frame is a near-tie.
+  CSV are equal under ``chip_smoke.ALLOWED_DIFFERENCES`` and the OCR
+  yardstick of chip_smoke.py (tests/torchparity.py): on these books it
+  excuses one text line of the Type3 book, whose recognizer frame is a
+  near-tie.
 - The ``/Rotate 90`` scan of tests/test_pipeline.py::
   test_rotated_scanned_page_end_to_end (``chip_smoke.rotated_scan_pdf``):
   one segment, in display space, and the same JSON as the JAX pipeline's.
 """
 import csv
 import os
-import re
 
 import pytest
 
-from chip_smoke import payload, payload_differences, rotated_scan_pdf
-from synapta_tpu.config import PipelineConfig as JaxPipelineConfig
-from synapta_tpu.llm.fake import DisabledClient as JaxDisabledClient
-from synapta_tpu.pipeline import VisualSegmentationPipeline as JaxPipe
-from synapta_tpu_torch.config import PipelineConfig
-from synapta_tpu_torch.llm.fake import DisabledClient
-from synapta_tpu_torch.pipeline import VisualSegmentationPipeline as TorchPipe
+from chip_smoke import payload_differences, rotated_scan_pdf
 
+import torchparity
 from corpus import make_fonttools_book, make_mpl_book, make_pil_book
 from test_corpus_e2e import _check_outputs
 from torchfixtures import pin_threads
@@ -47,37 +43,21 @@ MPL_KEYWORDS = ["revenue", "cost", "portfolio weights", "stocks", "bonds", "figu
 # The one difference left on these books: on the Type3 book, segment 0's
 # text line 7 (the y tick "-0.75", box [18, 256, 64, 268] in both runs),
 # which the port reads "--0.75" and JAX "-0.75". Its recognizer frame 3
-# lies between two "-" frames and is a near-tie between blank and "-": in a
-# batch of 128 tiles on the CPU the port gives blank 0.50117 against "-"
-# 0.49799 (logit gap +0.0064), JAX blank 0.49919 against "-" 0.49997 (gap
-# -0.0016); the two models' logits on that tile differ by at most 0.036,
-# float32 sums in other orders (PERF.md §7). Blank keeps two dashes, "-"
-# merges them, and JAX's line mean takes in a frame at 0.50 (93.36 against
-# the port's 98.78 of 100). The frame may come out either way; only the
-# line's text, its confidence and what reads them may differ.
-KNIFE_EDGE = {
-    "mpl3": (r"segments\[0\]\.(ocr_result\.(blocks\[7\]\.(text|confidence)|raw_text"
-             r"|confidence|node_texts\[7\]|tick_labels\.y_axis\[7\])"
-             r"|chart_(data|details)\.tick_labels\.y_axis\[7\]"
-             r"|extracted_text_structured\.values\[7\])"),
-}
+# lies between two "-" frames and is a near-tie between blank and "-" (bf16
+# logit gaps 0.0064 in the port, 0.0016 in JAX). The yardstick excuses it:
+# in float32 the two recognizers agree on every tile of the book (logits
+# within 2.3e-5, equal paths, both "--0.75" here), and JAX's own bf16 text
+# differs from its float32 text on 3 tiles of the book, the port's from
+# JAX's on this one.
 
 
 def _runs(pdf, d, book_id, use_mermaid=True, **cfg):
-    """The port's and the JAX pipeline's run of one book, LLM off."""
-    tp = TorchPipe(book_id, pdf, output_dir=str(d / ("t_" + book_id)),
-                   use_mermaid=use_mermaid,
-                   config=PipelineConfig(use_vision_llm=False, **cfg),
-                   llm_client=DisabledClient(), resume=False, device="cpu")
-    t_segs = tp.process()
-    tp.close()
-    jp = JaxPipe(book_id, pdf, output_dir=str(d / ("j_" + book_id)),
-                 use_mermaid=use_mermaid,
-                 config=JaxPipelineConfig(use_vision_llm=False, data_devices=1, **cfg),
-                 llm_client=JaxDisabledClient(), resume=False)
-    j_segs = jp.process()
-    jp.close()
-    return tp, t_segs, jp, j_segs
+    """The port's and the JAX pipeline's run of one book, LLM off, recorded
+    for the yardstick -> (port pipeline, its segments, JAX pipeline, its
+    segments, the run)."""
+    run = torchparity.runs(pdf, str(d), book_id, use_mermaid=use_mermaid, **cfg)
+    t, j = run["port"], run["jax"]
+    return t["pipe"], t["segments"], j["pipe"], j["segments"], run
 
 
 @pytest.fixture(scope="module", params=list(BOOKS))
@@ -90,7 +70,7 @@ def foreign(request, tmp_path_factory):
 
 
 def test_foreign_book_passes_the_jax_tests_checks(foreign):
-    book_id, d, tp, t_segs, jp, j_segs = foreign
+    book_id, d, tp, t_segs, jp, j_segs, _ = foreign
     _check_outputs(tp, t_segs, str(d / ("t_" + book_id)), book_id,
                    BOOKS[book_id][1])
     if book_id.startswith("mpl"):
@@ -105,27 +85,14 @@ def test_foreign_book_passes_the_jax_tests_checks(foreign):
 
 
 def test_foreign_book_json_and_csv_equal_the_jax_pipelines(foreign):
-    book_id, d, tp, t_segs, jp, j_segs = foreign
+    book_id, d, tp, t_segs, jp, j_segs, run = foreign
     assert jp.stats.errors == 0 and len(t_segs) == len(j_segs)
+    report = torchparity.assert_same_or_excused(run, book_id)
+    assert report is None or not report["unpaired"], report
     outs = [str(d / ("t_" + book_id)), str(d / ("j_" + book_id))]
-    outside, _, csv_equal = payload_differences(*outs, book_id)
-    edge = [k for k in outside
-            if book_id in KNIFE_EDGE and re.fullmatch(KNIFE_EDGE[book_id], k[0])]
-    assert not [k for k in outside if k not in edge], outside
-    if edge:  # the near-tie line: the same box, one dash more or less
-        t_line, j_line = (payload(o, book_id)["segments"][0]["ocr_result"]["blocks"][7]
-                          for o in outs)
-        assert t_line["bbox"] == j_line["bbox"] == [18, 256, 64, 268], edge
-        assert {t_line["text"], j_line["text"]} == {"--0.75", "-0.75"}, edge
     rows = [list(csv.reader(open(os.path.join(o, f"{book_id}_visual_summary.csv"),
                                  newline=""))) for o in outs]
     assert len(rows[0]) == len(rows[1]) == 1 + len(t_segs)
-    text_col = rows[0][0].index("ocr_text")
-    for r, (t_row, j_row) in enumerate(zip(*rows)):
-        for c, (a, b) in enumerate(zip(t_row, j_row)):
-            # the near-tie line's text reaches the first segment's text cell
-            assert a == b or (edge and (r, c) == (1, text_col)), (r, c, a, b)
-    assert csv_equal or edge
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +100,7 @@ def rotated(tmp_path_factory):
     d = tmp_path_factory.mktemp("torch_rotscan")
     pdf = str(d / "rotscan.pdf")
     rotated_scan_pdf(pdf)
-    return d, *_runs(pdf, d, "rotscan", use_mermaid=False)
+    return d, *_runs(pdf, d, "rotscan", use_mermaid=False)[:4]
 
 
 def test_rotated_scanned_page_in_display_space(rotated):

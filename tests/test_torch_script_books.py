@@ -10,9 +10,10 @@ analyze pass's batch invariance at the sweep's 32-crop chunk.
 - scripts/torch_mpl_scale.py: ``make_big_mpl_book(pages=8, fonttype=42,
   seed=7)`` (every ``p % 8`` page kind once) drawn once, the port run by the
   script's ``main`` (its JSON line carries the JAX script's keys) and the JAX
-  pipeline on the same file: 0 errors, and the two ``mplbook_visual_segments
-  .json`` equal key by key and the CSVs cell by cell under
-  ``chip_smoke.ALLOWED_DIFFERENCES``.
+  pipeline on the same file, each recorded: 0 errors, and the two
+  ``mplbook_visual_segments.json`` equal key by key and the CSVs cell by
+  cell under ``chip_smoke.ALLOWED_DIFFERENCES`` and the OCR yardstick of
+  chip_smoke.py (tests/torchparity.py).
 - scripts/torch_real_corpus.py: six rendered crops of varied aspect saved
   as PNGs and both scripts' ``CORPUS`` set to their folder. The two
   ``build_book`` make byte-equal PDFs (one DCT/JPEG image XObject a page at
@@ -29,7 +30,6 @@ import hashlib
 import io
 import json
 import os
-import re
 import tempfile
 import unittest.mock as mock
 
@@ -45,6 +45,7 @@ from synapta_tpu.llm.fake import DisabledClient as JaxDisabledClient
 from synapta_tpu.pipeline import VisualSegmentationPipeline as JaxPipe
 from synapta_tpu_torch.ops.features import device_analyze
 
+import torchparity
 from torchfixtures import pin_threads, rendered_canvases
 
 pin_threads()
@@ -58,16 +59,12 @@ TIMED_KEYS = {"wall_s", "pages_per_s"}
 # The one difference left on the matplotlib book: the y tick "6 -" of the
 # two bar-chart pages (p % 8 = 2 and 6; segments 1 and 5, the same tile,
 # box [78, 264, 92, 272] in both runs), which the port reads "s -" and JAX
-# "≥ -". Frame 3 of its tile is a near-tie between the two characters
-# (scripts/near_tie_frames.py, CPU): the port gives "s" 0.25814 against "≥"
-# 0.25703 (logit gap +0.0043), JAX "≥" 0.25884 against "s" 0.25845 (gap
-# +0.0015); the two models' logits on that tile differ by at most 0.072,
-# float32 sums in other orders (PERF.md §7). Only the line's text, its
-# confidence and what reads them may differ.
-KNIFE_EDGE = {
-    "mplbook": (r"segments\[(1|5)\]\.(ocr_result\.(blocks\[6\]\.(text|confidence)"
-                r"|raw_text|confidence)|extracted_text_structured\.labels\[2\])"),
-}
+# "≥ -". Frame 3 of its tile is a near-tie between the two characters (bf16
+# logit gaps 0.0043 in the port, 0.0015 in JAX). The yardstick of
+# chip_smoke.py excuses it (tests/torchparity.py): in float32 the two
+# recognizers agree on every tile of the book (logits within 2.5e-5, equal
+# paths, "≥ -" in both), and JAX's own bf16 text differs from its float32
+# text on 5 tiles of the book, the port's from JAX's on 3.
 
 
 def load_script(name):
@@ -113,14 +110,10 @@ def _main_line(main, argv):
 
 
 def _assert_same_payloads(out_a, out_b, book_id):
-    """The two runs' JSON and CSV equal under the table -> the differing
-    keys that KNIFE_EDGE pins."""
+    """The two runs' JSON and CSV equal under the table."""
     outside, _, csv_equal = payload_differences(out_a, out_b, book_id)
-    edge = [k for k in outside
-            if book_id in KNIFE_EDGE and re.fullmatch(KNIFE_EDGE[book_id], k[0])]
-    assert not [k for k in outside if k not in edge], outside
+    assert not outside, outside
     assert csv_equal
-    return edge
 
 
 # ------------------------------------------------------------ the sweep's CLI
@@ -153,18 +146,26 @@ def test_sweep_main_on_cpu(tmp_path, monkeypatch):
 
 @pytest.fixture(scope="module")
 def mpl_runs(tmp_path_factory):
+    """The script's run and the JAX pipeline's, each recorded for the
+    yardstick."""
     d = tmp_path_factory.mktemp("torch_mplscale")
     mpl = load_script("torch_mpl_scale")
     pdf = str(d / "mpl8.pdf")
     mpl.make_big_mpl_book(pdf, pages=8, fonttype=42, seed=7)
-    line = _main_line(mpl.main, ["--pages", "8", "--book", pdf, "--out",
-                                 str(d / "t"), "--skip-generate", "--device", "cpu"])
-    jp, j_segs = _jax_run(pdf, str(d / "j"), "mplbook")
-    return d, line, jp, j_segs
+    runs = {}
+    with torchparity.recorder("port") as rec:
+        line = _main_line(mpl.main, ["--pages", "8", "--book", pdf, "--out",
+                                     str(d / "t"), "--skip-generate", "--device",
+                                     "cpu"])
+    runs["port"] = {"rec": rec, "out": str(d / "t")}
+    with torchparity.recorder("jax") as rec:
+        jp, j_segs = _jax_run(pdf, str(d / "j"), "mplbook")
+    runs["jax"] = {"rec": rec, "out": str(d / "j")}
+    return d, line, jp, j_segs, runs
 
 
 def test_mpl_book_line_and_segments_equal_the_jax_pipelines(mpl_runs):
-    d, line, jp, j_segs = mpl_runs
+    d, line, jp, j_segs, _ = mpl_runs
     assert set(line) == MPL_LINE_KEYS
     assert line["pages"] == 8 and line["fonttype"] == 42
     assert line["errors"] == 0 and jp.stats.errors == 0
@@ -179,14 +180,8 @@ def test_mpl_book_line_and_segments_equal_the_jax_pipelines(mpl_runs):
 
 
 def test_mpl_book_json_and_csv_equal_the_jax_pipelines(mpl_runs):
-    d = mpl_runs[0]
-    edge = _assert_same_payloads(str(d / "t"), str(d / "j"), "mplbook")
-    for i in {int(re.match(r"segments\[(\d+)\]", k[0]).group(1)) for k in edge}:
-        # the near-tie line: the same box, one character either way
-        t_line, j_line = (payload(str(d / o), "mplbook")["segments"][i][
-            "ocr_result"]["blocks"][6] for o in "tj")
-        assert t_line["bbox"] == j_line["bbox"] == [78, 264, 92, 272], edge
-        assert {t_line["text"], j_line["text"]} <= {"s -", "≥ -"}, edge
+    report = torchparity.assert_same_or_excused(mpl_runs[-1], "mplbook")
+    assert report is None or not report["unpaired"], report
 
 
 # ------------------------------------------------------- the JPEG crop book
