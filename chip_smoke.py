@@ -54,12 +54,20 @@ float32 on the CPU, then drives the port's entry points on the GPU:
   CMYK JPEG, two scanned-page rasters through the DB detector, a
   three-visual page), the book tests/test_torch_diverse.py holds to the JAX
   pipeline, on the GPU and on the CPU, each run under ``OCRRecorder``, its
-  recognizer tiles and DB views evaluated again in bf16 and in float32 on
-  its own device, and the GPU held to the CPU by the OCR yardstick
-  (``ocr_yardstick``, ``db_yardstick``, ``judge_keys``): float32 logits
-  within ``F32_LOGIT_BOUND``, the GPU's bf16 no farther from the CPU's than
-  the CPU's bf16 from its own float32, and every key outside the table
-  explained by a line that this excused (``e2e_diverse``);
+  recognizer tiles and DB views evaluated again in bf16, float32 and
+  float64 on its own device (``card_against_cpu``), and the GPU held to the
+  CPU by the OCR yardstick (``ocr_yardstick``, ``db_yardstick``,
+  ``judge_keys``): float64 logits within ``F64_LOGIT_BOUND``, float32
+  logits within ``F32_LOGIT_BOUND`` (or past it no farther from the CPU's
+  float64 than the CPU's own float32), the GPU's bf16 no farther from the
+  CPU's than the CPU's bf16 from its own float32, and every key outside the
+  table explained by a line that this excused; its ``float64`` key prints
+  (a0) for both models, each float32's distance to the CPU's float64 and
+  the lines whose confidences drift farther apart than the CPU's own, each
+  side's bf16 and float32 confidence less the CPU's float64 one
+  (``e2e_diverse``). The two scanned books' and the foreign books' runs
+  are recorded and judged in float64 the same way (their ``float64`` key;
+  (a0) is gated there too);
 - training, which launches no kernel of the port's own (cuDNN, cuBLAS and
   torch's CTC loss): three optimiser steps of each trainer in float32 on
   the GPU against the CPU from the same parameters and batches, and the
@@ -543,13 +551,25 @@ class OCRRecorder:
 # a line whose bf16 greedy paths differ (or whose DB box differs, under (b)
 # of the DB maps); a line whose paths agree keeps the table's confidence
 # bound unless the reference's own bf16 confidence of that line differs
-# from its float32 one by at least as much. Its only two constants:
+# from its float32 one by at least as much. Both models also run in
+# float64, heads included, on the real tiles and views (``f64``): (a0) in
+# float64 the two runs compute the same function, and (a) judges a float32
+# gap past its bound by each side's distance to the reference's float64
+# answer. Its only three constants:
 #
+# (a0) the largest |logit difference| between the two runs' float64
+# models, on a recognizer tile and on a DB map; never excused (measured
+# port against JAX on the CPU, on every book the tier-1 tests judge: at
+# most 3.6e-14 on the recognizer, 1.8e-12 on the DB maps)
+F64_LOGIT_BOUND = 1e-9
 # (a) the largest |logit difference| between the two runs' float32 models,
-# on a recognizer tile and on a DB map; a frame's float32 greedy choice, and
-# a DB pixel's side of the threshold, may differ only within it of a tie
-# (measured 2.9e-5 between the port's and the JAX recognizer on the diverse
-# book, CPU)
+# on a recognizer tile and on a DB map (measured 2.9e-5 between the port's
+# and the JAX recognizer on the diverse book, CPU). A tile or DB chunk past
+# it passes only where (a0) holds and the candidate's float32 is no farther
+# from the reference's float64 than the reference's own float32 is. A
+# frame's float32 greedy choice, and a DB pixel's side of the threshold, may
+# differ only at a tie within the tile's (the chunk's) measured float32
+# difference.
 F32_LOGIT_BOUND = 1e-3
 # (b) the candidate's |bf16 - float32| logit error (the largest of a tile)
 # over the reference's, at most, at each of ERROR_QUANTILES of the tiles
@@ -576,19 +596,60 @@ OCR_SEGMENT_KEYS = (
 OCR_CSV_COLUMNS = ("ocr_text",)  # the summary CSV's cell of raw_text
 
 
+def real_views(views):
+    """(B, S, S) uint8 DB views -> (B,) bool: the views that are not all
+    white (the rest pad a chunk)."""
+    return (views != 255).reshape(len(views), -1).any(1)
+
+
+def port_float64_logits(model, x):
+    """The float64 logits of a port model built in float64
+    (``recognizer_from_flax`` or ``detector_from_flax`` with
+    ``dtype=torch.float64``) on the float64 input ``x`` (N, 1, H, W) in
+    [0, 1]. The model's forward hands its head the trunk's output cast to
+    float32, as flax's float32 head reads it; here the trunk's output is
+    taken where its last block returns it and the head is applied to it in
+    float64, with the model's own submodules and weights. -> recognizer
+    (N, W/4, C); detector (N, S/2, S/2), the probability channel."""
+    import torch
+
+    from synapta_tpu_torch.models.detector import Detector, same_conv
+    from synapta_tpu_torch.models.recognizer import _dense, _layer_norm
+
+    trunk = []
+    hook = model.blocks[-1].register_forward_hook(lambda m, i, o: trunk.append(o))
+    try:
+        model(x)
+    finally:
+        hook.remove()
+    (h,) = trunk
+    if h.dtype != torch.float64:
+        raise TypeError(f"the trunk's output is {h.dtype}, not float64")
+    if isinstance(model, Detector):
+        return same_conv(model.head, h)[:, 0]
+    return _dense(model.head, _layer_norm(model.norm, h, torch.float64))
+
+
 def port_tile_logits(model, tiles, line_batch: int):
-    """(N, 32, W) uint8 tiles -> (N, W/4, C) float32 logits of the port's
-    recognizer ``model`` on its device, in chunks of ``line_batch`` padded
-    with white tiles as ``recognize_dispatch`` pads them, normalised as
-    ``_decode`` normalises them."""
+    """(N, 32, W) uint8 tiles -> (N, W/4, C) logits of the port's
+    recognizer ``model`` on its device, normalised as ``_decode``
+    normalises them, in chunks of ``line_batch``: float32 logits of a bf16
+    or float32 model, each chunk padded with white tiles as
+    ``recognize_dispatch`` pads it; float64 logits (``port_float64_logits``)
+    of a float64 model, on the real tiles alone."""
     import numpy as np
     import torch
 
     dev = next(model.parameters()).device
+    wide = model.dtype == torch.float64
     out = []
     with torch.inference_mode():
         for start in range(0, tiles.shape[0], line_batch):
             chunk = tiles[start:start + line_batch]
+            if wide:
+                x = torch.from_numpy(chunk).to(dev).to(torch.float64)[:, None] / 255.0
+                out.append(port_float64_logits(model, x).cpu().numpy())
+                continue
             pad = np.full((line_batch - chunk.shape[0],) + chunk.shape[1:], 255,
                           np.uint8)
             x = torch.from_numpy(np.concatenate([chunk, pad])).to(dev)
@@ -597,33 +658,88 @@ def port_tile_logits(model, tiles, line_batch: int):
     return np.concatenate(out)
 
 
-def port_evaluation(rec: OCRRecorder, f32_model, f32_det):
+def port_db_logits64(det, views):
+    """(B, S, S) uint8 DB views -> (R, S/2, S/2) float64 logits of the port's
+    float64 detector ``det`` on the R real views (``real_views``)."""
+    import torch
+
+    dev = next(det.parameters()).device
+    x = torch.from_numpy(views[real_views(views)]).to(dev).to(torch.float64)
+    with torch.inference_mode():
+        return port_float64_logits(det, x[:, None] / 255.0).cpu().numpy()
+
+
+def port_evaluation(rec: OCRRecorder, models, dets):
     """The port run's recorded batches, each with its bf16 logits (the
-    run's own model), float32 logits (``f32_model``) and bf16 greedy
-    paths; and its DB chunks, each with the run's bf16 logits and
-    ``f32_det``'s float32 logits."""
+    run's own model), float32 and float64 logits (``models``, the pair of
+    recognizers built in those dtypes) and bf16 greedy paths; and its DB
+    chunks, each with the run's bf16 logits and the float32 and float64
+    logits of ``dets`` (the pair of detectors), the float64 ones on the
+    real views alone."""
     from synapta_tpu_torch.models.detector import db_logits
 
     batches = rec.batches()
     for b in batches:
         lb = b["ocr"].cfg.line_batch
         b["bf16"] = port_tile_logits(b["ocr"].model, b["tiles"], lb)
-        b["f32"] = port_tile_logits(f32_model, b["tiles"], lb)
+        b["f32"] = port_tile_logits(models[0], b["tiles"], lb)
+        b["f64"] = port_tile_logits(models[1], b["tiles"], lb)
         b["paths"] = b["bf16"].argmax(-1)  # as _decode takes them
     db = [{"views": c["views"], "prob_thresh": c["prob_thresh"],
            "bf16": db_logits(c["model"], c["views"]).float().cpu().numpy(),
-           "f32": db_logits(f32_det, c["views"]).float().cpu().numpy()}
+           "f32": db_logits(dets[0], c["views"]).float().cpu().numpy(),
+           "f64": port_db_logits64(dets[1], c["views"])}
           for c in rec.db_chunks]
     return batches, db
 
 
+def port_models(device):
+    """The port's recognizer and DB detector from the shipped weights, each
+    built in float32 and in float64 on ``device``: the (models, dets) pairs
+    of ``port_evaluation``."""
+    import torch
+
+    from synapta_tpu_torch.models.detector import detector_from_flax, load_det_params
+    from synapta_tpu_torch.models.msgpack_io import load_params
+    from synapta_tpu_torch.models.recognizer import recognizer_from_flax
+
+    tree, det_tree = load_params(), load_det_params()
+    return ([recognizer_from_flax(tree, dtype=dt, device=device)
+             for dt in (torch.float32, torch.float64)],
+            [detector_from_flax(det_tree, dtype=dt, device=device)
+             for dt in (torch.float32, torch.float64)])
+
+
+def float32_verdict(d32, d64, ref_err, cand_err) -> dict:
+    """(a0) and (a) over tiles or DB chunks, each with its largest float32
+    difference between the runs ``d32``, float64 difference ``d64``, and
+    distances of the reference's and the candidate's float32 to the
+    reference's float64, ``ref_err`` and ``cand_err`` (arrays, one value a
+    tile or chunk). A unit within ``F32_LOGIT_BOUND`` passes; one past it
+    only where (a0) holds and ``cand_err <= ref_err``."""
+    import numpy as np
+
+    d32, d64, ref_err, cand_err = (np.asarray(v, np.float64)
+                                   for v in (d32, d64, ref_err, cand_err))
+    ok_a0 = bool(d64.max(initial=0.0) <= F64_LOGIT_BOUND)
+    past = d32 > F32_LOGIT_BOUND
+    nearer = cand_err <= ref_err
+    return {"f64_max_abs_diff": float(d64.max(initial=0.0)),
+            "ref32_to_ref64": float(ref_err.max(initial=0.0)),
+            "cand32_to_ref64": float(cand_err.max(initial=0.0)),
+            "past_f32_bound": int(past.sum()),
+            "past_f32_bound_nearer_f64": int((past & nearer).sum()),
+            "ok_a0": ok_a0, "ok_a": bool(not past.any() or (ok_a0 and nearer[past].all()))}
+
+
 def db_yardstick(ref, cand):
-    """(a) and (b) on the DB maps of two runs' DB chunks (each a dict:
-    ``views`` (B, S, S) uint8, ``prob_thresh``, ``bf16`` and ``f32``
-    (B, S/2, S/2) logits). Views are paired in order and must be equal;
-    the padding views (all white) are left out. A mask is the pipeline's
-    ``sigmoid(logit) > prob_thresh``; the closing after it is exact, so
-    only the threshold lets a float difference through."""
+    """(a0), (a) and (b) on the DB maps of two runs' DB chunks (each a
+    dict: ``views`` (B, S, S) uint8, ``prob_thresh``, ``bf16`` and ``f32``
+    (B, S/2, S/2) logits, ``f64`` (R, S/2, S/2) logits of the R real views).
+    Views are paired in order and must be equal; the padding views (all
+    white) are left out. A mask is the pipeline's ``sigmoid(logit) >
+    prob_thresh``; the closing after it is exact, so only the threshold lets
+    a float difference through. (a) is judged chunk by chunk."""
     import numpy as np
     import torch
 
@@ -633,26 +749,32 @@ def db_yardstick(ref, cand):
            "bf16_views_flipped": 0, "ref_bf16_vs_f32_flipped_pixels": 0,
            "cand_bf16_vs_f32_flipped_pixels": 0, "bf16_max_abs_logit_diff": 0.0}
     if len(ref) != len(cand):
-        rep.update(ok_a=False, ok_b=False)
+        rep.update(ok_a0=False, ok_a=False, ok_b=False)
         return rep
+    per_chunk = []  # (d32, d64, ref32 to ref64, cand32 to ref64) a chunk
     for r, c in zip(ref, cand):
         if not np.array_equal(r["views"], c["views"]):
             rep["inputs_equal"] = False
             continue
         p = r["prob_thresh"]
-        real = (r["views"] != 255).reshape(len(r["views"]), -1).any(1)
+        real = real_views(r["views"])
         rep["views"] += int(real.sum())
         lg = {"r16": r["bf16"][real], "r32": r["f32"][real],
               "c16": c["bf16"][real], "c32": c["f32"][real]}
+        r64, c64 = r["f64"], c["f64"]
+        if r64.dtype != np.float64 or c64.dtype != np.float64:
+            raise TypeError(f"float64 DB logits are {r64.dtype}, {c64.dtype}")
         m = {k: (torch.sigmoid(torch.from_numpy(np.ascontiguousarray(v))) > p)
              .numpy() for k, v in lg.items()}
         thr = math.log(p / (1.0 - p))
-        near = ((np.abs(lg["r32"] - thr) <= F32_LOGIT_BOUND)
-                | (np.abs(lg["c32"] - thr) <= F32_LOGIT_BOUND))
+        d32 = float(np.abs(lg["r32"] - lg["c32"]).max(initial=0.0))
+        per_chunk.append((d32, float(np.abs(r64 - c64).max(initial=0.0)),
+                          float(np.abs(lg["r32"] - r64).max(initial=0.0)),
+                          float(np.abs(lg["c32"] - r64).max(initial=0.0))))
+        near = (np.abs(lg["r32"] - thr) <= d32) | (np.abs(lg["c32"] - thr) <= d32)
         flips32 = m["r32"] != m["c32"]
         flips16 = m["r16"] != m["c16"]
-        rep["f32_max_abs_logit_diff"] = max(rep["f32_max_abs_logit_diff"], float(
-            np.abs(lg["r32"] - lg["c32"]).max(initial=0.0)))
+        rep["f32_max_abs_logit_diff"] = max(rep["f32_max_abs_logit_diff"], d32)
         rep["bf16_max_abs_logit_diff"] = max(rep["bf16_max_abs_logit_diff"], float(
             np.abs(lg["r16"] - lg["c16"]).max(initial=0.0)))
         rep["f32_flipped_pixels"] += int(flips32.sum())
@@ -662,29 +784,35 @@ def db_yardstick(ref, cand):
                                          .any(1).sum())
         rep["ref_bf16_vs_f32_flipped_pixels"] += int((m["r16"] != m["r32"]).sum())
         rep["cand_bf16_vs_f32_flipped_pixels"] += int((m["c16"] != m["c32"]).sum())
-    rep["ok_a"] = (rep["inputs_equal"]
-                   and rep["f32_max_abs_logit_diff"] <= F32_LOGIT_BOUND
+    rep.update(float32_verdict(*(list(zip(*per_chunk)) or [()] * 4)))
+    rep["ok_a0"] = rep["ok_a0"] and rep["inputs_equal"]
+    rep["ok_a"] = (rep["ok_a"] and rep["inputs_equal"]
                    and rep["f32_flips_off_the_threshold"] == 0)
     rep["ok_b"] = rep["bf16_flipped_pixels"] <= rep["ref_bf16_vs_f32_flipped_pixels"]
     return rep
 
 
 def ocr_yardstick(ref, cand, db=None) -> dict:
-    """(a) and (b) on the recognizer, over two runs' recorded batches (each
-    a dict as ``OCRRecorder.batches`` makes it, with ``bf16`` and ``f32``
-    logits and the bf16 greedy ``paths``), and on the DB maps (``db``, the
-    report of ``db_yardstick``, or None where no DB chunk ran). Tiles are
-    paired by key and must be equal. A tile of one run without a partner in
-    the other (its DB line box differs) is excused only where the DB
-    detector drew its box and the DB maps meet (a) and (b); ``unpaired``
-    lists each such line once. Returns the
-    report: the counts and quantiles, every excused tile (its segment, box,
-    both texts and the frames that differ, with each model's two most likely
-    characters and its logit gap between them), ``excused_lines`` and
-    ``confidence_lines`` (segment, box and the reference's own bf16 against
-    float32 confidence difference of each line whose paths agree but whose
-    confidence passes the table's bound and no farther than that) for
-    ``judge_keys``, and ``ok``."""
+    """(a0), (a) and (b) on the recognizer, over two runs' recorded batches
+    (each a dict as ``OCRRecorder.batches`` makes it, with ``bf16``,
+    ``f32`` and ``f64`` logits and the bf16 greedy ``paths``), and on the
+    DB maps (``db``, the report of ``db_yardstick``, or None where no DB
+    chunk ran). Tiles are paired by key and must be equal; (a) is judged
+    tile by tile. A tile of one run without a partner in the other (its DB
+    line box differs) is excused only where the DB detector drew its box
+    and the DB maps meet (a0), (a) and (b); ``unpaired`` lists each such
+    line once. Returns the report: the counts and quantiles, (a0) and each
+    float32's distance to the reference's float64 (``float64``), every
+    excused tile (its segment, box, both texts and the frames that differ,
+    with each model's two most likely characters and its logit gap between
+    them), ``excused_lines`` and ``confidence_lines`` (segment, box and the
+    reference's own bf16 against float32 confidence difference of each
+    line whose paths agree but whose confidence passes the table's bound
+    and no farther than that) for ``judge_keys``, the lines whose
+    confidences drift farther apart than the reference's own
+    (``confidence.drift``: each run's bf16 and float32 confidence of the
+    line less the reference's float64 one; a measurement, no gate) and
+    ``ok``."""
     import numpy as np
 
     from synapta_tpu_torch.models.charset import BLANK, decode_greedy_batch
@@ -692,7 +820,7 @@ def ocr_yardstick(ref, cand, db=None) -> dict:
     def flat(batches):
         keys = [k for b in batches for k in b["keys"]]
         run = {n: np.concatenate([b[n] for b in batches])
-               for n in ("tiles", "bf16", "f32", "paths")}
+               for n in ("tiles", "bf16", "f32", "f64", "paths")}
         run["labels"] = [lab for b in batches for lab in b["labels"]]
         run["index"] = {k: i for i, k in enumerate(keys)}
         run["keys"] = keys
@@ -724,19 +852,33 @@ def ocr_yardstick(ref, cand, db=None) -> dict:
         a, b = np.argsort(-logits)[:2]
         return [char(a), char(b)], float(logits[a] - logits[b])
 
-    # (a) float32: the same function
+    # (a0) float64: the same function; (a) float32: the same function, or
+    # a tile past the bound no farther from the reference's float64 answer
+    # than the reference's own float32
     r32, c32 = R["f32"][ri], C["f32"][ci]
+    r64, c64 = R["f64"][ri], C["f64"][ci]
+    if r64.dtype != np.float64 or c64.dtype != np.float64:
+        raise TypeError(f"float64 tile logits are {r64.dtype}, {c64.dtype}")
     f32_diff = np.abs(r32 - c32).max(axis=(1, 2), initial=0.0)
-    r32p, c32p = r32.argmax(-1), c32.argmax(-1)
+    verdict = float32_verdict(
+        f32_diff, np.abs(r64 - c64).max(axis=(1, 2), initial=0.0),
+        np.abs(r32 - r64).max(axis=(1, 2), initial=0.0),
+        np.abs(c32 - r64).max(axis=(1, 2), initial=0.0))
+    r32p, c32p, r64p = r32.argmax(-1), c32.argmax(-1), r64.argmax(-1)
     differ = r32p != c32p
-    tie = np.minimum(gap(r32), gap(c32)) <= F32_LOGIT_BOUND
+    tie = np.minimum(gap(r32), gap(c32)) <= f32_diff[:, None]
+    f64 = {k: verdict[k] for k in ("f64_max_abs_diff", "ref32_to_ref64",
+                                   "cand32_to_ref64")}
+    f64.update(tiles=len(ri), ok=verdict["ok_a0"])
     a = {"tiles": len(ri), "max_abs_logit_diff": float(f32_diff.max(initial=0.0)),
+         "past_bound": verdict["past_f32_bound"],
+         "past_bound_nearer_f64": verdict["past_f32_bound_nearer_f64"],
          "paths_differ": int(differ.any(-1).sum()),
          "frames_differ": int(differ.sum()),
          "frames_differ_at_a_tie": int((differ & tie).sum())}
-    a["ok"] = (not tiles_differ and a["max_abs_logit_diff"] <= F32_LOGIT_BOUND
+    a["ok"] = (not tiles_differ and verdict["ok_a"]
                and a["frames_differ"] == a["frames_differ_at_a_tie"])
-    del r32, c32
+    del r32, c32, c64
 
     # (b) bf16: no farther from the reference than it is from itself
     rp, cp = R["paths"][ri], C["paths"][ci]
@@ -782,7 +924,7 @@ def ocr_yardstick(ref, cand, db=None) -> dict:
                         "texts": [rt[n], ct[n]], "f32_texts": [rt32[n], ct32[n]],
                         "frames": frames})
         lines.add((lab["segment"], tuple(lab["box"])))
-    db_ok = db is not None and db["ok_a"] and db["ok_b"]
+    db_ok = db is not None and db["ok_a0"] and db["ok_a"] and db["ok_b"]
     unpaired_ok = not unpaired or (db_ok and all(u["db"] for u in unpaired))
     for u in unpaired:
         lines.add((u["segment"], tuple(u["box"])))
@@ -792,14 +934,18 @@ def ocr_yardstick(ref, cand, db=None) -> dict:
     # candidate's against the reference's, and the reference's bf16 against
     # its own float32 answer on the same line. A line farther apart than the
     # table's block bound is listed, and excused where the reference's own
-    # difference is at least as large.
+    # difference is at least as large. A line farther apart than the
+    # reference's own difference is listed in ``drift`` with each
+    # confidence's distance to the reference's float64 one.
     conf = {"ref": (confidence(R["bf16"][ri], rp), rt),
             "cand": (confidence(C["bf16"][ci], cp), ct),
-            "ref_f32": (confidence(R["f32"][ri], r32p), rt32)}
+            "ref_f32": (confidence(R["f32"][ri], r32p), rt32),
+            "cand_f32": (confidence(C["f32"][ci], c32p), ct32),
+            "ref_f64": (confidence(r64, r64p), decode_greedy_batch(r64p))}
     parts = {}
     for n, i in enumerate(ri):
         parts.setdefault(R["keys"][i][:5], []).append(n)
-    over, largest = [], 0.0
+    over, drift, largest = [], [], 0.0
     for ns in parts.values():
         lab = R["labels"][ri[ns[0]]]
         if path_differs[ns].any() or (lab["segment"], tuple(lab["box"])) in lines:
@@ -809,22 +955,55 @@ def ocr_yardstick(ref, cand, db=None) -> dict:
             kept = [float(c[n]) for n in ns if texts[n].strip()]
             v[k] = float(np.mean(kept)) if kept else 0.0
         largest = max(largest, abs(v["cand"] - v["ref"]))
+        if abs(v["cand"] - v["ref"]) > abs(v["ref"] - v["ref_f32"]):
+            drift.append({"segment": lab["segment"], "box": lab["box"],
+                          "diff": abs(v["cand"] - v["ref"]),
+                          "ref_own": abs(v["ref"] - v["ref_f32"]),
+                          "less_ref_f64": {k: v[k] - v["ref_f64"] for k in (
+                              "cand", "cand_f32", "ref", "ref_f32")}})
         if allowed_difference("segments[0].ocr_result.blocks[0].confidence",
                               v["ref"], v["cand"]) is None:
             over.append({"segment": lab["segment"], "box": lab["box"], **v,
                          "excused": abs(v["cand"] - v["ref"])
                          <= abs(v["ref"] - v["ref_f32"])})
-    b["confidence"] = {"max_abs_diff": largest, "lines_over_table": over}
+    b["confidence"] = {"max_abs_diff": largest, "lines_over_table": over,
+                       "drift": sorted(drift, key=lambda d: -d["diff"])}
     report = {"tiles": [len(R["keys"]), len(C["keys"])], "paired": len(ri),
               "tiles_differ": tiles_differ, "unpaired": unpaired,
-              "float32": a, "bf16": b, "db": db, "excused_tiles": excused,
+              "float64": f64, "float32": a, "bf16": b, "db": db,
+              "excused_tiles": excused,
               "excused_lines": sorted(lines, key=str),
               "confidence_lines": [(o["segment"], o["box"],
                                     abs(o["ref"] - o["ref_f32"]))
                                    for o in over if o["excused"]]}
-    report["ok"] = bool(a["ok"] and b["ok"] and unpaired_ok
+    report["ok"] = bool(f64["ok"] and a["ok"] and b["ok"] and unpaired_ok
                         and (db is None or db_ok))
     return report
+
+
+def card_against_cpu(recs: dict, models: dict):
+    """The OCR yardstick on one book's two recorded runs (``recs``, each an
+    entered and left ``OCRRecorder``), the card's ("cuda") the candidate and
+    the CPU's ("cpu") the reference, each evaluated by ``port_evaluation``
+    on its own device with the models ``models[device]`` (``port_models``)
+    -> (each run's batches and DB chunks, the report (None where neither
+    run recognized a tile), its float64 part:
+    (a0) card against CPU for both models, each float32's distance to the
+    CPU's float64, and the lines whose confidences drift farther apart than
+    the CPU's own bf16 and float32 ones)."""
+    ev = {d: port_evaluation(recs[d], *models[d]) for d in ("cuda", "cpu")}
+    (ref_b, ref_db), (cand_b, cand_db) = ev["cpu"], ev["cuda"]
+    db = db_yardstick(ref_db, cand_db) if ref_db or cand_db else None
+    report = ocr_yardstick(ref_b, cand_b, db) if ref_b or cand_b else None
+    f64 = {"reference": "cpu",
+           "ok_a0": bool((report is None or report["float64"]["ok"])
+                         and (db is None or db["ok_a0"])),
+           "recognizer": report and report["float64"],
+           "db": db and {k: db[k] for k in ("views", "f64_max_abs_diff",
+                                            "ref32_to_ref64", "cand32_to_ref64",
+                                            "past_f32_bound", "ok_a0")},
+           "drift": report["bf16"]["confidence"]["drift"] if report else []}
+    return ev, report, f64
 
 
 def judge_keys(out_ref: str, out_cand: str, report: dict, book_id: str = "smoke"):
@@ -1434,12 +1613,26 @@ def main() -> int:
         return fail(f"quality: recall {recall:.3f}, classified {hits}/{total}")
 
     # ---------------------------------------------------- 7. e2e scanned
+    # The books below whose OCR is held card against CPU are also recorded
+    # (OCRRecorder) and their tiles and DB views evaluated again on each
+    # device, in bf16, float32 and float64 (``card_against_cpu``): (a0) the
+    # card's float64 models compute the CPU's function, and each side's
+    # float32 distance to the CPU's float64 is printed
+    eval_models = {d: port_models(d) for d in ("cuda", "cpu")}
+
+    def recorded_run(pdf, out, device, **kw):
+        rec = OCRRecorder(TorchOCR, VisualSegmentationPipeline, D, "boxes_device")
+        with rec:
+            return run(pdf, out, device, **kw), rec
+
     def scanned_pair(pages, seed, label):
         pdf = os.path.join(tmp, f"{label}.pdf")
         make_scanned_book(pdf, pages=pages, seed=seed)
-        runs = [run(pdf, os.path.join(tmp, f"{label}_{d}"), d)
-                for d in ("cuda", "cpu")]
+        (runs, recs) = zip(*(recorded_run(pdf, os.path.join(tmp, f"{label}_{d}"), d)
+                             for d in ("cuda", "cpu")))
         (p_gpu, s_gpu, w_gpu), (p_cpu, s_cpu, w_cpu) = runs
+        t = time.perf_counter()
+        f64 = card_against_cpu(dict(zip(("cuda", "cpu"), recs)), eval_models)[2]
         ok = ([key(s) for s in s_gpu] == [key(s) for s in s_cpu]
               and len(s_gpu) == pages and not p_gpu.stats.errors
               and not p_cpu.stats.errors and p_gpu.ocr._db_detector is not None)
@@ -1449,7 +1642,8 @@ def main() -> int:
             segments=len(s_gpu), errors=[p_gpu.stats.errors, p_cpu.stats.errors],
             db_bound=[p_gpu.ocr._db_detector is not None,
                       p_cpu.ocr._db_detector is not None],
-            wall_s_cuda=w_gpu, wall_s_cpu=w_cpu)
+            wall_s_cuda=w_gpu, wall_s_cpu=w_cpu, float64=f64,
+            evaluation_s=time.perf_counter() - t)
 
     # the scanned book the tier-1 test holds to the JAX pipeline
     # (tests/test_torch_entrypoints.py): the whole JSON under the table
@@ -1458,9 +1652,10 @@ def main() -> int:
     emit("e2e_scanned_2page", keys_outside_table=len(outside),
          differing_keys=outside[:20], confidence_max_abs_diff=conf_diff,
          allowed=table, csv_equal=csv_equal, **info, **CARD)
-    if not ok:
+    if not ok or not info["float64"]["ok_a0"]:
         return fail("2-page scanned book: cuda and cpu segments differ, "
-                    "errors, or the DB detector never ran")
+                    "errors, the DB detector never ran, or the float64 "
+                    f"models differ: {info['float64']}")
     if outside or not csv_equal:
         return fail(f"2-page scanned book: the cuda and cpu JSON payloads "
                     f"differ outside the table: {outside[:5]}, csv equal "
@@ -1476,9 +1671,10 @@ def main() -> int:
          differing_keys=outside[:20], confidences_over_table=len(tail),
          confidence_max_abs_diff=conf_diff, allowed=table,
          csv_equal=csv_equal, **info, **CARD)
-    if not ok:
+    if not ok or not info["float64"]["ok_a0"]:
         return fail("4-page scanned book: cuda and cpu segments differ, "
-                    "errors, or the DB detector never ran")
+                    "errors, the DB detector never ran, or the float64 "
+                    f"models differ: {info['float64']}")
     if other or not csv_equal:
         return fail(f"4-page scanned book: the cuda and cpu JSON payloads "
                     f"differ outside the table: {other[:5]}, csv equal "
@@ -1699,8 +1895,9 @@ def main() -> int:
 
     # books from foreign toolchains on the card against the CPU: Pillow's
     # image-per-page book (whole-page rasters: the DB detector and the CC
-    # kernel's fifth call site) and the /Rotate 90 scan; counters start at 0
-    # before each card run and are read after it
+    # kernel's fifth call site) and the /Rotate 90 scan, each also judged in
+    # float64 as the scanned books are; counters start at 0 before each card
+    # run and are read after it
     make_pil_book = helper_module("corpus").make_pil_book
 
     t = time.perf_counter()
@@ -1719,8 +1916,8 @@ def main() -> int:
         chunks0 = TIMERS.counts.get("features_dispatch", 0)
         D.boxes_device = counted_boxes
         try:
-            p_gpu, s_gpu, w_gpu = run(pdf, os.path.join(tmp, f"{label}_cuda"),
-                                      "cuda", **kw)
+            (p_gpu, s_gpu, w_gpu), rec_gpu = recorded_run(
+                pdf, os.path.join(tmp, f"{label}_cuda"), "cuda", **kw)
         finally:
             D.boxes_device = boxes_device
         row = {"segments": len(s_gpu),
@@ -1729,7 +1926,10 @@ def main() -> int:
                "launches": {"cc": connected_components_cuda.launches,
                             "edge_stats": fused_edge_stats_cuda.launches},
                "edge_stats_route": edge_launches(), "wall_s_cuda": w_gpu}
-        p_cpu, s_cpu, _ = run(pdf, os.path.join(tmp, f"{label}_cpu"), "cpu", **kw)
+        (p_cpu, s_cpu, _), rec_cpu = recorded_run(
+            pdf, os.path.join(tmp, f"{label}_cpu"), "cpu", **kw)
+        row["float64"] = card_against_cpu({"cuda": rec_gpu, "cpu": rec_cpu},
+                                          eval_models)[2]
         outside, conf_diff, csv_equal = payload_differences(
             os.path.join(tmp, f"{label}_cuda"), os.path.join(tmp, f"{label}_cpu"))
         b = s_gpu[0].bbox if s_gpu else None
@@ -1750,6 +1950,7 @@ def main() -> int:
     for label, row in books.items():
         if (any(row["errors"]) or not row["cuda_equals_cpu"] or row["keys_outside_table"]
                 or not row["csv_equal"] or row["edge_stats_route"] is None
+                or not row["float64"]["ok_a0"]
                 or row["analyze_chunks"] == 0 or row["launches"]["cc"]
                 < 4 * row["analyze_chunks"] + row["db_chunks"]):
             return fail(f"{label}: cuda against cpu: {row}")
@@ -1920,28 +2121,25 @@ def main() -> int:
     # make_diverse_book(seed=5), the book tests/test_torch_diverse.py holds
     # to the JAX pipeline: the card against the CPU under the OCR yardstick,
     # the CPU's bf16 run the reference, each run recorded and its tiles and
-    # DB views evaluated again by the bf16 and the float32 models on its own
-    # device; counters at 0 before the card's run and read after it
+    # DB views evaluated again by the bf16, float32 and float64 models on its
+    # own device (``card_against_cpu``); counters at 0 before the card's run
+    # and read after it
     from synapta_tpu_torch.io.pdf_writer import make_diverse_book
-    from synapta_tpu_torch.models.msgpack_io import load_params
-    from synapta_tpu_torch.models.recognizer import recognizer_from_flax
-    from synapta_tpu_torch.ocr.processor import TorchOCR
 
     t = time.perf_counter()
     div_pdf = os.path.join(tmp, "diverse.pdf")
     make_diverse_book(div_pdf, seed=DIVERSE_SEED)
-    div = {}
+    div, recs = {}, {}
     for device in ("cuda", "cpu"):
-        rec = OCRRecorder(TorchOCR, VisualSegmentationPipeline, D, "boxes_device")
         if device == "cuda":
             connected_components_cuda.launches = 0
             fused_edge_stats_cuda.launches = 0
             del routes_seen[:]
             chunks0 = TIMERS.counts.get("features_dispatch", 0)
-        with rec:
-            pipe, segs, wall = run(div_pdf, os.path.join(tmp, f"div_{device}"), device)
+        (pipe, segs, wall), recs[device] = recorded_run(
+            div_pdf, os.path.join(tmp, f"div_{device}"), device)
         row = {"segments": len(segs), "errors": pipe.stats.errors, "wall_s": wall,
-               "db_chunks": len(rec.db_chunks)}
+               "db_chunks": len(recs[device].db_chunks)}
         if device == "cuda":
             row.update(analyze_chunks=TIMERS.counts.get("features_dispatch", 0) - chunks0,
                        launches={"cc": connected_components_cuda.launches,
@@ -1949,38 +2147,34 @@ def main() -> int:
                        edge_stats_route=edge_launches())
             div_launches = row["launches"]
             edge_by_path["diverse10"] = row["edge_stats_route"]
-        te = time.perf_counter()
-        batches, db = port_evaluation(
-            rec, recognizer_from_flax(load_params(), dtype=torch.float32,
-                                      device=device),
-            D.detector_from_flax(D.load_det_params(), dtype=torch.float32,
-                                 device=device))
-        row["evaluation_s"] = time.perf_counter() - te
-        div[device] = {"row": row, "segments": segs, "batches": batches, "db": db}
-    div_db = (db_yardstick(div["cpu"]["db"], div["cuda"]["db"])
-              if div["cpu"]["db"] or div["cuda"]["db"] else None)
-    div_report = ocr_yardstick(div["cpu"]["batches"], div["cuda"]["batches"], div_db)
+        div[device] = {"row": row, "segments": segs}
+    te = time.perf_counter()
+    _, div_report, div_f64 = card_against_cpu(recs, eval_models)
+    evaluation_s = time.perf_counter() - te
     div_keys = judge_keys(os.path.join(tmp, "div_cpu"), os.path.join(tmp, "div_cuda"),
                           div_report)
     div_same = ([key(s) for s in div["cuda"]["segments"]]
                 == [key(s) for s in div["cpu"]["segments"]])
     emit("e2e_diverse", seed=DIVERSE_SEED,
          runs={d: v["row"] for d, v in div.items()}, cuda_equals_cpu=div_same,
+         evaluation_s=evaluation_s, float64=div_f64,
          yardstick={k: v for k, v in div_report.items() if k != "excused_lines"},
-         bounds={"f32_logit": F32_LOGIT_BOUND, "error_ratio_max": ERROR_RATIO_MAX},
+         bounds={"f64_logit": F64_LOGIT_BOUND, "f32_logit": F32_LOGIT_BOUND,
+                 "error_ratio_max": ERROR_RATIO_MAX},
          key_faults=div_keys["faults"][:20], excused_keys=div_keys["excused_keys"],
          excused_segments=div_keys["excused_segments"],
          elapsed_phase_s=time.perf_counter() - t, **CARD)
     cuda_row = div["cuda"]["row"]
     if (not div_same or cuda_row["errors"] or div["cpu"]["row"]["errors"]
-            or not div_report["ok"] or div_keys["faults"]
+            or not div_f64["ok_a0"] or not div_report["ok"] or div_keys["faults"]
             or cuda_row["edge_stats_route"] is None or cuda_row["analyze_chunks"] == 0
             or cuda_row["db_chunks"] == 0
             or div_launches["cc"] < 4 * cuda_row["analyze_chunks"] + cuda_row["db_chunks"]
             or div_launches["edge_stats"] != cuda_row["analyze_chunks"]):
-        return fail(f"diverse book: cuda against cpu: {cuda_row}, yardstick ok "
-                    f"{div_report['ok']}, key faults {div_keys['faults'][:5]}")
-    del div, div_report
+        return fail(f"diverse book: cuda against cpu: {cuda_row}, float64 "
+                    f"{div_f64['ok_a0']}, yardstick ok {div_report['ok']}, key "
+                    f"faults {div_keys['faults'][:5]}")
+    del div, recs, div_report, eval_models
 
     # -------------------------------------------------------- 9. training
     # no kernel of its own: convs and matmuls through cuDNN/cuBLAS, the CTC

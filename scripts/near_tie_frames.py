@@ -11,8 +11,9 @@ JSON line for every tile whose bf16 greedy paths differ (its segment, line
 box, the two bf16 texts and the two float32 texts, and for each frame that
 differs each model's two most likely characters and the logit gap between
 them), one for every line that only one run cut (its DB box differs), then
-the yardstick's counts and verdicts and the keys (c) found outside what it
-excused. ``--save-views`` writes the non-white DB views that the port's
+the yardstick's counts and verdicts (its ``float64`` part: (a0) and each
+float32's distance to JAX's float64) and the keys (c) found outside what
+it excused. ``--save-views`` writes the non-white DB views that the port's
 run handed its DB detector to an .npy (the input of
 ``scripts/bf16_op_parity.py --views``). Needs the JAX package, so it is no
 script of the port's own (scripts/torch_*.py).
@@ -39,7 +40,7 @@ def main(argv=None) -> int:
     ap.add_argument("--save-views", help="write the port run's DB views here")
     args = ap.parse_args(argv)
 
-    from chip_smoke import helper_module
+    from chip_smoke import helper_module, real_views
 
     sys.path.insert(0, os.path.join(HERE, "tests"))  # torchparity's imports
     parity = helper_module("torchparity")
@@ -51,8 +52,7 @@ def main(argv=None) -> int:
         import numpy as np
 
         views = np.concatenate([c["views"] for c in run["port"]["db"]])
-        np.save(args.save_views,
-                views[(views != 255).reshape(len(views), -1).any(1)])
+        np.save(args.save_views, views[real_views(views)])
     for tile in report.pop("excused_tiles"):
         print(json.dumps(tile, ensure_ascii=False), flush=True)
     for line in report.pop("unpaired"):

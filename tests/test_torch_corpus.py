@@ -17,11 +17,12 @@ JAX pipeline, on the CPU.
   one segment, in display space, and the same JSON as the JAX pipeline's.
 """
 import csv
+import json
 import os
 
 import pytest
 
-from chip_smoke import payload_differences, rotated_scan_pdf
+from chip_smoke import db_yardstick, payload_differences, rotated_scan_pdf
 
 import torchparity
 from corpus import make_fonttools_book, make_mpl_book, make_pil_book
@@ -89,6 +90,11 @@ def test_foreign_book_json_and_csv_equal_the_jax_pipelines(foreign):
     assert jp.stats.errors == 0 and len(t_segs) == len(j_segs)
     report = torchparity.assert_same_or_excused(run, book_id)
     assert report is None or not report["unpaired"], report
+    if book_id == "pilbook":  # its DB maps, though no key differs
+        torchparity.evaluated(run)
+        db = db_yardstick(run["jax"]["db"], run["port"]["db"])
+        print(json.dumps({"pilbook_db_yardstick": db}))
+        assert db["views"] > 0 and db["ok_a0"] and db["ok_a"], db
     outs = [str(d / ("t_" + book_id)), str(d / ("j_" + book_id))]
     rows = [list(csv.reader(open(os.path.join(o, f"{book_id}_visual_summary.csv"),
                                  newline=""))) for o in outs]

@@ -7,13 +7,16 @@ detector, a three-visual page) runs through the port (``device="cpu"``, one
 torch thread) and the JAX pipeline (one data device), LLM off, each under a
 ``chip_smoke.OCRRecorder`` (tests/torchparity.py). Every recorded
 recognizer batch and DB chunk is evaluated again by each package's models
-in bf16 and in float32, with the same parameters. Then:
+in bf16, in float32 and in float64, with the same parameters. Then:
 
 - the same 14 segments (ids, pages, boxes, types), 0 errors, the DB
   detector run by both;
 - byte-equal tiles in equal batches, and equal DB views;
+- (a0) float64, heads included: the two packages compute the same
+  function (logits within ``F64_LOGIT_BOUND``; DB maps likewise);
 - (a) float32: the two packages compute the same function (logits within
-  ``F32_LOGIT_BOUND``, equal greedy paths; DB maps likewise);
+  ``F32_LOGIT_BOUND``, or past it no farther from JAX's float64 answer than
+  JAX's own float32 is; equal greedy paths; DB maps likewise);
 - (b) bf16: the port's text differs from JAX's on no more tiles than JAX's
   bf16 text differs from its own float32 text; its error quantiles at most
   ``ERROR_RATIO_MAX`` of JAX's; the DB maps' flipped pixels likewise;
@@ -37,9 +40,10 @@ import shutil
 import numpy as np
 import pytest
 
-from chip_smoke import (ERROR_RATIO_MAX, F32_LOGIT_BOUND, OCR_LINE_KEYS,
-                        OCR_SEGMENT_KEYS, allowed_difference, db_yardstick,
-                        judge_keys, json_differences, ocr_yardstick, payload)
+from chip_smoke import (ERROR_RATIO_MAX, F32_LOGIT_BOUND, F64_LOGIT_BOUND,
+                        OCR_LINE_KEYS, OCR_SEGMENT_KEYS, allowed_difference,
+                        db_yardstick, judge_keys, json_differences,
+                        ocr_yardstick, payload)
 from synapta_tpu.io.pdf_writer import make_diverse_book
 
 import torchparity
@@ -93,8 +97,10 @@ def test_diverse_tiles_byte_equal_in_equal_batches(diverse):
 
 
 def test_float32_the_same_function(diverse):
-    """(a): never excused; a failure here is a fault of the port."""
-    a, db = diverse[1]["float32"], diverse[1]["db"]
+    """(a0) and (a): never excused; a failure here is a fault of the port."""
+    f64, a, db = (diverse[1][k] for k in ("float64", "float32", "db"))
+    assert f64["ok"] and f64["f64_max_abs_diff"] <= F64_LOGIT_BOUND, f64
+    assert db["ok_a0"] and db["f64_max_abs_diff"] <= F64_LOGIT_BOUND, db
     assert a["ok"], a
     assert a["max_abs_logit_diff"] <= F32_LOGIT_BOUND
     assert a["paths_differ"] == 0, a

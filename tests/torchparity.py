@@ -5,28 +5,70 @@ yardstick of chip_smoke.py (CPU).
 the JAX pipeline (one data device) with the LLM off, each under a
 ``chip_smoke.OCRRecorder``. ``evaluated(run)`` evaluates every recorded
 recognizer batch and DB chunk with each package's models in bf16 (the
-pipeline's own) and in float32 (the same parameters): the port's through
-``chip_smoke.port_evaluation``, JAX's here, with the float32 model
-``model.clone(dtype=jnp.float32)`` jitted as the pipeline jits its model.
-``yardstick(run["jax"], run["port"], book_id)`` applies (a), (b) and (c)
-with the JAX run as the reference; ``assert_same_or_excused`` holds two
-runs' payloads equal under the table, or else to the yardstick.
-``recorder`` and ``evaluate`` serve a test that runs a pipeline its own way
-(through a script's ``main``).
+pipeline's own), in float32 and in float64 (the same parameters): the
+port's through ``chip_smoke.port_evaluation``, JAX's here, with the float32
+model ``model.clone(dtype=jnp.float32)`` jitted as the pipeline jits its
+model and the float64 one ``model.clone(dtype=jnp.float64)`` under
+``jax.enable_x64``, its float32 head applied in float64 to the captured
+trunk output (``jax_float64``). ``yardstick(run["jax"], run["port"],
+book_id)`` applies (a0), (a), (b) and (c) with the JAX run as the
+reference; ``assert_same_or_excused`` holds two runs' payloads equal under
+the table, or else to the yardstick (and prints its float64 and float32
+parts). ``recorder`` and ``evaluate`` serve a test that runs a pipeline its
+own way (through a script's ``main``).
 """
+import json
 import os
 
 import numpy as np
-import torch
 
 from chip_smoke import (OCRRecorder, db_yardstick, judge_keys, ocr_yardstick,
-                        payload_differences, port_evaluation)
+                        payload_differences, port_evaluation, port_models,
+                        real_views)
+
+
+def jax_float64(model, head: str, head_module, trunk: str):
+    """A jitted ``f(params, x)``: the float64 logits of the flax ``model``
+    (its clone in float64) on the float64 input ``x``, with its float32
+    head ``head`` (a parameter subtree's name) applied in float64 as
+    ``head_module`` to the output of its submodule ``trunk``, captured with
+    ``capture_intermediates``. Trace and call it inside
+    ``jax.enable_x64(True)``."""
+    import jax
+    import jax.numpy as jnp
+
+    wide = model.clone(dtype=jnp.float64)
+
+    def f(params, x):
+        _, state = wide.apply({"params": params}, x, mutable=["intermediates"],
+                              capture_intermediates=lambda m, _: m.name == trunk)
+        (h,) = state["intermediates"][trunk]["__call__"]
+        assert h.dtype == jnp.float64, h.dtype
+        return head_module.apply({"params": params[head]}, h)
+
+    return jax.jit(f)
+
+
+def as_float64(tree):
+    """A flax parameter tree with float64 leaves (inside
+    ``jax.enable_x64(True)``)."""
+    import jax
+    import jax.numpy as jnp
+
+    return jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)),
+                                  tree)
 
 
 def jax_evaluation(rec):
-    """The JAX run's recorded batches with bf16 and float32 logits and the
-    bf16 greedy paths of the pipeline's own jitted ``_decode``; its DB
-    chunks with bf16 and float32 logits."""
+    """The JAX run's recorded batches with bf16, float32 and float64 logits
+    and the bf16 greedy paths of the pipeline's own jitted ``_decode``; its
+    DB chunks with bf16 and float32 logits, and float64 logits of the real
+    views. The float64 models are the flax models cloned in float64, with
+    float64 parameters and input and the float32 heads applied in float64
+    to the captured trunk output (``jax_float64``: the recognizer's final
+    ``LayerNorm_0``, the detector's head block ``ConvBlock_10``), run under
+    ``jax.enable_x64`` so that nothing else in the process sees x64."""
+    import flax.linen as fnn
     import jax
     import jax.numpy as jnp
 
@@ -59,6 +101,24 @@ def jax_evaluation(rec):
            "bf16": np.asarray(det[0](c["model"], c["views"]), np.float32),
            "f32": np.asarray(det[1](c["model"], c["views"]), np.float32)}
           for c in rec.db_chunks]
+    with jax.enable_x64(True):
+        wide = {}
+        for b in batches:
+            ocr, lb = b["ocr"], b["ocr"].cfg.line_batch
+            if id(ocr) not in wide:
+                wide[id(ocr)] = (jax_float64(ocr.model, "Dense_0", fnn.Dense(
+                    ocr.model.num_classes, dtype=jnp.float64), "LayerNorm_0"),
+                    as_float64(ocr.params))
+            f64_fn, p64 = wide[id(ocr)]
+            b["f64"] = np.concatenate([np.asarray(f64_fn(p64, jnp.asarray(
+                b["tiles"][start:start + lb, ..., None], jnp.float64) / 255.0))
+                for start in range(0, b["tiles"].shape[0], lb)])
+        det64 = jax_float64(JD._INFER_MODEL, "Conv_4", fnn.Conv(
+            2, (3, 3), padding="SAME", dtype=jnp.float64), "ConvBlock_10")
+        for c, d in zip(rec.db_chunks, db):
+            views = c["views"][real_views(c["views"])]
+            d["f64"] = np.asarray(det64(as_float64(c["model"]), jnp.asarray(
+                views[..., None], jnp.float64) / 255.0))[..., 0]
     return batches, db
 
 
@@ -79,17 +139,11 @@ def recorder(side: str) -> OCRRecorder:
 
 
 def evaluate(side: str, rec: OCRRecorder):
-    """A recorded run's batches and DB chunks with their bf16 and float32
-    logits (``chip_smoke.port_evaluation`` or ``jax_evaluation``)."""
+    """A recorded run's batches and DB chunks with their bf16, float32 and
+    float64 logits (``chip_smoke.port_evaluation`` or ``jax_evaluation``)."""
     if side == "jax":
         return jax_evaluation(rec)
-    from synapta_tpu_torch.models.detector import detector_from_flax, load_det_params
-    from synapta_tpu_torch.models.msgpack_io import load_params
-    from synapta_tpu_torch.models.recognizer import recognizer_from_flax
-
-    return port_evaluation(
-        rec, recognizer_from_flax(load_params(), dtype=torch.float32, device="cpu"),
-        detector_from_flax(load_det_params(), dtype=torch.float32, device="cpu"))
+    return port_evaluation(rec, *port_models("cpu"))
 
 
 def runs(pdf, out_dir, book_id, use_mermaid=False, **cfg):
@@ -156,6 +210,12 @@ def assert_same_or_excused(run: dict, book_id: str):
         return None
     evaluated(run)
     report, keys = yardstick(run["jax"], run["port"], book_id)
+    db = report["db"] or {}
+    print(json.dumps({"book": book_id, "float64": report["float64"],
+                      "float32": report["float32"], "db": {
+                          k: db.get(k) for k in ("f64_max_abs_diff", "ref32_to_ref64",
+                                                 "cand32_to_ref64", "past_f32_bound",
+                                                 "f32_max_abs_logit_diff")}}))
     assert report["ok"], (outside, report)
     assert not keys["faults"], keys["faults"]
     return report
