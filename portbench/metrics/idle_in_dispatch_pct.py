@@ -1,0 +1,9 @@
+"""Share of the traced window in which the device ran nothing while the
+program's main thread was inside ``dispatch`` (analyze sync, the DB
+detector, tile cutting, the recognizer's enqueue; program spans,
+``program_spans.py``)."""
+from portbench import program_spans
+
+
+def read(run):
+    return program_spans.idle_pct(run, "dispatch")

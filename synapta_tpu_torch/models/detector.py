@@ -714,8 +714,17 @@ def mask_boxes(mask: torch.Tensor) -> torch.Tensor:
 
 def boxes_device(model: Detector, gray_u8, prob_thresh: float) -> torch.Tensor:
     """(B, S, S) uint8 -> (B, 128, 5) boxes on the model's device, enqueued
-    without waiting (counterpart of the JAX module's ``_boxes_device``)."""
-    return mask_boxes(closed_mask(db_logits(model, gray_u8), prob_thresh))
+    without waiting (counterpart of the JAX module's ``_boxes_device``).
+    Stage ``db_post``: the post stage, with the real views (not all white,
+    as padding is) of a host batch while a profiler records."""
+    from synapta_tpu_torch.utils.profiler import TIMERS, recording
+
+    logits = db_logits(model, gray_u8)
+    with TIMERS.stage("db_post") as attrs:
+        if recording() and isinstance(gray_u8, np.ndarray):
+            attrs["views"] = int(
+                (gray_u8.reshape(gray_u8.shape[0], -1).min(axis=1) < 255).sum())
+        return mask_boxes(closed_mask(logits, prob_thresh))
 
 
 # refine knobs (module-level so eval sweeps can probe alternatives; the

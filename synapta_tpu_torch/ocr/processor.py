@@ -163,27 +163,33 @@ class TorchOCR:
 
     def recognize_dispatch(self, tiles: np.ndarray):
         """Async half: enqueue every fixed-shape batch on the device and
-        return the pending device tensors without waiting for them."""
+        return the pending device tensors without waiting for them. Stage
+        ``rec_dispatch``: ``tiles`` real, ``rows`` enqueued (padding
+        included)."""
+        from synapta_tpu_torch.utils.profiler import TIMERS
+
         cfg = self.cfg
-        if tiles.dtype != np.uint8:
-            tiles = np.clip(tiles * 255.0, 0.0, 255.0).astype(np.uint8)
         n = tiles.shape[0]
         pending = []
-        for start in range(0, n, cfg.line_batch):
-            chunk = tiles[start : start + cfg.line_batch]
-            pad_n = cfg.line_batch - chunk.shape[0]
-            if pad_n:
-                chunk = np.concatenate(
-                    [chunk, np.full((pad_n,) + chunk.shape[1:], 255, np.uint8)]
-                )
-            if self.mesh is not None:
-                packed = self.mesh.dispatch(self._decode, chunk)
-            else:
-                x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
-                    self.device, non_blocking=True
-                )
-                packed = self._decode(x)
-            pending.append((packed, chunk.shape[0], pad_n))
+        with TIMERS.stage("rec_dispatch", tiles=n) as attrs:
+            if tiles.dtype != np.uint8:
+                tiles = np.clip(tiles * 255.0, 0.0, 255.0).astype(np.uint8)
+            for start in range(0, n, cfg.line_batch):
+                chunk = tiles[start : start + cfg.line_batch]
+                pad_n = cfg.line_batch - chunk.shape[0]
+                if pad_n:
+                    chunk = np.concatenate(
+                        [chunk, np.full((pad_n,) + chunk.shape[1:], 255, np.uint8)]
+                    )
+                if self.mesh is not None:
+                    packed = self.mesh.dispatch(self._decode, chunk)
+                else:
+                    x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                        self.device, non_blocking=True
+                    )
+                    packed = self._decode(x)
+                pending.append((packed, chunk.shape[0], pad_n))
+            attrs["rows"] = len(pending) * cfg.line_batch
         return pending
 
     @staticmethod

@@ -38,7 +38,7 @@ from synapta_tpu_torch.ocr import heuristics as H
 from synapta_tpu_torch.ocr.processor import TorchOCR
 from synapta_tpu_torch.schema import OCRResult, VisualSegment, VisualType
 from synapta_tpu_torch.utils.log import PipelineStats, get_logger
-from synapta_tpu_torch.utils.profiler import TIMERS
+from synapta_tpu_torch.utils.profiler import TIMERS, SpanPool
 from synapta_tpu_torch.vision import captions as cap
 from synapta_tpu_torch.vision import classify as C
 from synapta_tpu_torch.vision import local_analysis as LA
@@ -91,15 +91,14 @@ class VisualSegmentationPipeline:
         self.mesh = None  # data mesh, built in process()
         # late-LLM patching: writer/stats guards + in-flight future tracking
         self._writer_lock = threading.Lock()
-        from concurrent.futures import ThreadPoolExecutor as _TPE
-
         # PNG encoders: zlib releases the GIL, so encodes overlap native
-        # renders on the prepare thread
-        self._png_pool = _TPE(max_workers=3, thread_name_prefix="png")
+        # renders on the prepare thread. Both pools run each task in its
+        # submitter's span context (book, batch, parent span).
+        self._png_pool = SpanPool(max_workers=3, thread_name_prefix="png")
         # ONE device-feed worker: every device enqueue comes from one
         # thread, which overlaps the host-side gray/subsample and H2D copy
         # with detect/render/enrich on the main thread.
-        self._feed_pool = _TPE(max_workers=1, thread_name_prefix="feed")
+        self._feed_pool = SpanPool(max_workers=1, thread_name_prefix="feed")
         self._inflight: set = set()
         self._inflight_cv = threading.Condition()
 
@@ -120,6 +119,12 @@ class VisualSegmentationPipeline:
 
     def process(self) -> List[VisualSegment]:
         """The one public entry point (ref :2721-2761)."""
+        with TIMERS.stage("book", book=self.cfg.book_id) as attrs:
+            return self._process_book(attrs)
+
+    def _process_book(self, book_attrs: dict) -> List[VisualSegment]:
+        """``process()`` inside the book's span (``book_attrs`` takes its
+        page count)."""
         t0 = time.time()
         recovered = self.writer.load_checkpoint() if self.resume else 0
         if recovered:
@@ -150,6 +155,7 @@ class VisualSegmentationPipeline:
         if self.ocr is None:
             self.ocr = TorchOCR(self.cfg.ocr, device=self.device, mesh=self.mesh)
         n_pages = self.doc.page_count
+        book_attrs["pages"] = n_pages
         log.info("processing %s: %d pages", self.cfg.pdf_path, n_pages)
         try:
             batch = self.cfg.pages_per_batch
@@ -184,48 +190,56 @@ class VisualSegmentationPipeline:
             from synapta_tpu_torch.io.loader import ensure_canvas_ring
 
             ensure_canvas_ring(depth + rdepth + 2)
-            analyzing: deque = deque()  # (prepared, analyze_pending)
-            recognizing: deque = deque()  # states from _ocr_dispatch
+            # entries lead with the super-batch's index, which names the
+            # spans of its dispatch and enrich stages
+            analyzing: deque = deque()  # (batch, prepared, analyze_pending)
+            recognizing: deque = deque()  # (batch, state from _ocr_dispatch)
             for i, pages in enumerate(spans):
                 prepared = None
-                try:
-                    if loader is not None:
-                        # keep the pool fed even when a span fails: the
-                        # i+2 submit must happen regardless, or one bad
-                        # prepare starves loader_futs and a later
-                        # loader_futs[i] raises IndexError
-                        if i + 2 < len(spans):
-                            loader_futs.append(
-                                loader.submit(None, spans[i + 2])
-                            )
-                        with TIMERS.stage("prepare_wait"):
-                            prepared = loader_futs[i].result()
-                    else:
-                        prepared = self._prepare_batch(pages)
-                except Exception:
-                    log.exception("prepare failed for batch %s", list(pages))
-                    self.stats.errors += 1
-                self.stats.pages += len(pages)
-                if prepared is not None:
-                    # enqueue from the feed thread: the H2D transfer blocks
-                    # its caller but releases the GIL, so this thread keeps
-                    # doing host work while the canvases stream over
-                    pending_fut = self._feed_pool.submit(
-                        self._analyze_dispatch, prepared[1], prepared[2]
-                    )
-                    analyzing.append((prepared, pending_fut))
-                    self.stats.regions += len(prepared[0])
-                if len(analyzing) > depth:
+                with TIMERS.batch(i):
                     try:
-                        recognizing.append(
-                            self._ocr_dispatch(*analyzing.popleft())
+                        if loader is not None:
+                            # keep the pool fed even when a span fails: the
+                            # i+2 submit must happen regardless, or one bad
+                            # prepare starves loader_futs and a later
+                            # loader_futs[i] raises IndexError
+                            if i + 2 < len(spans):
+                                loader_futs.append(
+                                    loader.submit(None, spans[i + 2])
+                                )
+                            with TIMERS.stage("prepare_wait"):
+                                prepared = loader_futs[i].result()
+                        else:
+                            prepared = self._prepare_batch(pages)
+                    except Exception:
+                        log.exception("prepare failed for batch %s", list(pages))
+                        self.stats.errors += 1
+                    self.stats.pages += len(pages)
+                    if prepared is not None:
+                        # enqueue from the feed thread: the H2D transfer
+                        # blocks its caller but releases the GIL, so this
+                        # thread keeps doing host work while the canvases
+                        # stream over
+                        pending_fut = self._feed_pool.submit(
+                            self._analyze_dispatch, prepared[1], prepared[2]
                         )
+                        analyzing.append((i, prepared, pending_fut))
+                        self.stats.regions += len(prepared[0])
+                if len(analyzing) > depth:
+                    k, prepared_k, pending_k = analyzing.popleft()
+                    try:
+                        with TIMERS.stage("dispatch", batch=k):
+                            recognizing.append(
+                                (k, self._ocr_dispatch(prepared_k, pending_k))
+                            )
                     except Exception:
                         log.exception("ocr dispatch failed; skipping batch")
                         self.stats.errors += 1
                 if len(recognizing) > rdepth:
+                    k, state = recognizing.popleft()
                     try:
-                        self._enrich_finish(recognizing.popleft())
+                        with TIMERS.stage("enrich", batch=k):
+                            self._enrich_finish(state)
                     except Exception:
                         log.exception("enrich stage failed; skipping batch")
                         self.stats.errors += 1
@@ -233,16 +247,20 @@ class VisualSegmentationPipeline:
             # analyzing enters the recognize queue first, then enrich
             # drains in batch order so writer output stays page-ordered)
             while analyzing:
+                k, prepared_k, pending_k = analyzing.popleft()
                 try:
-                    recognizing.append(
-                        self._ocr_dispatch(*analyzing.popleft())
-                    )
+                    with TIMERS.stage("dispatch", batch=k):
+                        recognizing.append(
+                            (k, self._ocr_dispatch(prepared_k, pending_k))
+                        )
                 except Exception:
                     log.exception("final ocr dispatch failed")
                     self.stats.errors += 1
             while recognizing:
+                k, state = recognizing.popleft()
                 try:
-                    self._enrich_finish(recognizing.popleft())
+                    with TIMERS.stage("enrich", batch=k):
+                        self._enrich_finish(state)
                 except Exception:
                     log.exception("enrich stage failed; skipping batch")
                     self.stats.errors += 1
@@ -262,11 +280,13 @@ class VisualSegmentationPipeline:
         """In-process prepare (loader_workers == 0 path, and tests)."""
         from synapta_tpu_torch.io.loader import prepare_batch
 
-        with TIMERS.stage("prepare_body"):
-            return prepare_batch(
+        with TIMERS.stage("prepare_body", pages=len(pages)) as attrs:
+            prepared = prepare_batch(
                 self.engine, self.render_doc, self.cfg.detection.render_dpi,
                 self.cfg.ocr.crop_size, pages, png_pool=self._png_pool,
             )
+            attrs["regions"] = len(prepared[0]) if prepared is not None else 0
+            return prepared
 
     def _ocr_dispatch(self, prepared, analyze_pending):
         """Pipeline stage 2 for one batch: sync its (already-computing)
@@ -447,7 +467,7 @@ class VisualSegmentationPipeline:
                 pad = np.full((cb - real,) + chunk.shape[1:], 255, np.uint8)
                 chunk = np.concatenate([chunk, pad])
             chunk_sizes = dims[start : start + real] + [(1, 1)] * (cb - real)
-            with TIMERS.stage("features_dispatch"):
+            with TIMERS.stage("features_dispatch", crops=real):
                 packed = device_analyze_dispatch(
                     chunk, sizes=np.array(chunk_sizes, np.int32),
                     device=self.device, mesh=self.mesh,

@@ -23,7 +23,9 @@
   substitutions (the device arguments of collect_tiles, db_detector, the
   evaluations, the book queue and the real-corpus run; the DB detector's
   device dispatch; the engine binary's path; ``torch_trace`` in the place of
-  ``jax_trace``; reference-project files named from its root).
+  ``jax_trace``; the span recorder in ``utils.profiler`` and the
+  ``prepare_body`` span's counts; reference-project files named from its
+  root).
 - No silent fallback: "cuda" raises without CUDA. ``line_detector="db"``
   binds the DB detector on the OCR's device.
 """
@@ -230,13 +232,84 @@ _HOST_MODULES = (
 def _module_subs(name, orig, port):
     """Named substitutions of a whole-module copy, besides the imports."""
     if name == "utils.profiler":
-        # StageTimers is the copy; torch_trace (torch.profiler, the same
-        # SYNAPTA_TRACE_DIR) stands where jax_trace stood
+        # torch_trace (torch.profiler, the same SYNAPTA_TRACE_DIR) stands
+        # where jax_trace stood and writes the spans into its file. The
+        # span recorder, line by line where it enters the copy: the
+        # docstring's paragraph on spans; its imports; the spans, lock and
+        # ids of StageTimers; stage() as a span, timed on perf_counter_ns,
+        # its totals under the lock; report() from a snapshot taken under
+        # the lock. Wholly new code is the port's own text: Span, the span
+        # context and recording(); batch() and spans_between(); SpanPool.
+        src = inspect.getsource(port)
         return [
             ("``jax_trace`` wraps a\nblock in the JAX profiler",
              "``torch_trace`` wraps a\nblock in the PyTorch profiler"),
+            ("device traces.\n\"\"\"\n",
+             "device traces.\n\n"
+             "While a ``torch.profiler`` records, every stage is also kept as a ``Span``\n"
+             "(its book, super-batch, parent span and thread, on ``perf_counter_ns``),\n"
+             "and ``torch_trace`` writes the spans of every thread into its trace file.\n"
+             "\"\"\"\n"),
+            ("import contextlib\n",
+             "import contextlib\nimport contextvars\nimport itertools\nimport json\n"),
+            ("import os\n", "import os\nimport socket\nimport sys\nimport threading\n"),
+            ("from collections import defaultdict\n",
+             "from collections import defaultdict, deque\n"
+             "from concurrent.futures import ThreadPoolExecutor\n"
+             "from dataclasses import dataclass\n"),
+            ("from typing import Dict, Iterator\n",
+             "from typing import Dict, Iterator, List, Optional\n"),
+            ("\n\nclass StageTimers:\n",
+             "\n" + _between(src, "SPAN_LIMIT =", "class StageTimers")
+             + "class StageTimers:\n"),
+            ("        self.counts: Dict[str, int] = defaultdict(int)\n",
+             "        self.counts: Dict[str, int] = defaultdict(int)\n"
+             "        self.spans: deque = deque(maxlen=SPAN_LIMIT)\n"
+             "        self._lock = threading.Lock()\n"
+             "        self._ids = itertools.count(1)\n"),
+            ("    def stage(self, name: str) -> Iterator[None]:\n"
+             "        t0 = time.perf_counter()\n",
+             "    def stage(self, name: str, **attrs) -> Iterator[dict]:\n"
+             "        \"\"\"Add the block's wall time to ``totals[name]``. While a profiler\n"
+             "        records, also keep it as a span: ``book`` and ``batch`` (if given)\n"
+             "        name it and the stages inside it; the other keywords are its counts.\n"
+             "        Yields those counts, for the block to add to.\"\"\"\n"
+             "        rec = recording()\n"
+             "        if rec:\n"
+             "            book, batch, parent = _CONTEXT.get()\n"
+             "            book, batch = attrs.pop(\"book\", book), attrs.pop(\"batch\", batch)\n"
+             "            sid = next(self._ids)\n"
+             "            token = _CONTEXT.set((book, batch, sid))\n"
+             "        t0 = time.perf_counter_ns()\n"),
+            ("            yield\n", "            yield attrs\n"),
+            ("            self.totals[name] += time.perf_counter() - t0\n"
+             "            self.counts[name] += 1\n",
+             "            t1 = time.perf_counter_ns()\n"
+             "            if rec:\n"
+             "                _CONTEXT.reset(token)\n"
+             "                span = Span(name, sid, parent, book, batch, threading.get_native_id(),\n"
+             "                            threading.get_ident(), t0, t1, attrs)\n"
+             "            with self._lock:\n"
+             "                self.totals[name] += (t1 - t0) / 1e9\n"
+             "                self.counts[name] += 1\n"
+             "                if rec:\n"
+             "                    self.spans.append(span)\n"),
+            ("    def report(self) -> Dict[str, Dict[str, float]]:\n",
+             _between(src, "    @contextlib.contextmanager\n    def batch", "    def report")
+             + "    def report(self) -> Dict[str, Dict[str, float]]:\n"
+             "        with self._lock:\n"
+             "            totals, counts = dict(self.totals), dict(self.counts)\n"),
+            ('"total_s": round(self.totals[k], 4)', '"total_s": round(totals[k], 4)'),
+            ('"calls": self.counts[k]', '"calls": counts[k]'),
+            ("round(1000 * self.totals[k] / max(self.counts[k], 1), 3)",
+             "round(1000 * totals[k] / max(counts[k], 1), 3)"),
+            ("sorted(self.totals, key=lambda k: -self.totals[k])",
+             "sorted(totals, key=lambda k: -totals[k])"),
+            ("TIMERS = StageTimers()\n\n\n",
+             _between(src, "TIMERS = StageTimers()\n",
+                      "@contextlib.contextmanager\ndef torch_trace")),
             (inspect.getsource(orig.jax_trace),
-             inspect.getsource(port.torch_trace)),
+             _between(src, "@contextlib.contextmanager\ndef torch_trace", None)),
         ]
     if name == "io.ingest":  # the engine binary, read by path from the repo root
         return [
@@ -254,6 +327,13 @@ def _module_subs(name, orig, port):
              '"_pdf_native.so"),\n'),
         ]
     return []
+
+
+def _between(src, start, end):
+    """The lines of ``src`` from the one that starts ``start`` up to the one
+    that starts ``end`` (the end of ``src`` for None)."""
+    i = src.index(start)
+    return src[i:] if end is None else src[i:src.index(end, i)]
 
 
 def _copies():
@@ -305,7 +385,8 @@ def _copies():
                  "_nearby_text"):
         out.append((f"pipeline.{name}",
                     tpipe.VisualSegmentationPipeline.__dict__[name],
-                    jpipe.VisualSegmentationPipeline.__dict__[name], []))
+                    jpipe.VisualSegmentationPipeline.__dict__[name],
+                    _PIPELINE_SUBS.get(name, [])))
     for name in _HOST_MODULES:
         orig = importlib.import_module(f"synapta_tpu.{name}")
         port = importlib.import_module(f"synapta_tpu_torch.{name}")
@@ -375,6 +456,23 @@ def _knobs(module):
     m = re.search(r"^# refine knobs.*?^_FLOOR_FRAC = [^\n]*\n",
                   inspect.getsource(module), re.M | re.S)
     return m.group(0)
+
+
+# the prepare_body span's counts: pages and regions
+_PIPELINE_SUBS = {
+    "_prepare_batch": [
+        ('        with TIMERS.stage("prepare_body"):\n'
+         "            return prepare_batch(\n",
+         '        with TIMERS.stage("prepare_body", pages=len(pages)) as attrs:\n'
+         "            prepared = prepare_batch(\n"),
+        ("                self.cfg.ocr.crop_size, pages, png_pool=self._png_pool,\n"
+         "            )\n",
+         "                self.cfg.ocr.crop_size, pages, png_pool=self._png_pool,\n"
+         "            )\n"
+         '            attrs["regions"] = len(prepared[0]) if prepared is not None else 0\n'
+         "            return prepared\n"),
+    ],
+}
 
 
 # DBLineDetector.detect_lines: the device dispatch and the copy back
