@@ -70,6 +70,7 @@ def main(argv=None) -> int:
         from synapta_tpu_torch.utils.profiler import TIMERS
 
         stats = pipe.stats.as_dict()
+        stats["prepare_workers"] = pipe.prepare_workers
         stats["stage_s"] = {
             k: v["total_s"] for k, v in TIMERS.report().items()
         }

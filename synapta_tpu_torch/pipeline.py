@@ -89,6 +89,7 @@ class VisualSegmentationPipeline:
         self.segments: List[VisualSegment] = []
         self.stats = PipelineStats()
         self.mesh = None  # data mesh, built in process()
+        self.prepare_workers = 0  # most threads that prepared a super-batch
         # late-LLM patching: writer/stats guards + in-flight future tracking
         self._writer_lock = threading.Lock()
         # PNG encoders: zlib releases the GIL, so encodes overlap native
@@ -157,6 +158,7 @@ class VisualSegmentationPipeline:
         n_pages = self.doc.page_count
         book_attrs["pages"] = n_pages
         log.info("processing %s: %d pages", self.cfg.pdf_path, n_pages)
+        preparer = None
         try:
             batch = self.cfg.pages_per_batch
             spans = [
@@ -184,6 +186,16 @@ class VisualSegmentationPipeline:
                 loader_futs = [
                     loader.submit(None, span) for span in spans[:2]
                 ]
+            else:
+                # in-process prepare: a super-batch's pages on a pool of
+                # threads, each with its own handles for this book
+                from synapta_tpu_torch.io.prepare_pool import BookPreparer
+
+                preparer = BookPreparer(
+                    self.cfg.pdf_path, self.cfg.pdf_password, self.cfg.detection,
+                    self.cfg.ocr.crop_size, self.engine, self.render_doc,
+                    png_pool=self._png_pool,
+                )
 
             depth = max(1, int(self.cfg.analyze_depth))
             rdepth = max(1, int(self.cfg.recognize_depth))
@@ -210,7 +222,7 @@ class VisualSegmentationPipeline:
                             with TIMERS.stage("prepare_wait"):
                                 prepared = loader_futs[i].result()
                         else:
-                            prepared = self._prepare_batch(pages)
+                            prepared = self._prepare_pages(preparer, pages)
                     except Exception:
                         log.exception("prepare failed for batch %s", list(pages))
                         self.stats.errors += 1
@@ -265,6 +277,8 @@ class VisualSegmentationPipeline:
                     log.exception("enrich stage failed; skipping batch")
                     self.stats.errors += 1
         finally:
+            if preparer is not None:
+                preparer.close()
             self._drain_patches()
             with TIMERS.stage("finalize"), self._writer_lock:
                 self.writer.finalize()
@@ -286,6 +300,16 @@ class VisualSegmentationPipeline:
                 self.cfg.ocr.crop_size, pages, png_pool=self._png_pool,
             )
             attrs["regions"] = len(prepared[0]) if prepared is not None else 0
+            return prepared
+
+    def _prepare_pages(self, preparer, pages: Sequence[int]):
+        """In-process prepare of one super-batch (loader_workers == 0) on
+        ``preparer``'s threads: ``_prepare_batch``'s span and counts, and
+        ``workers``, the threads that prepared it."""
+        with TIMERS.stage("prepare_body", pages=len(pages)) as attrs:
+            prepared, attrs["workers"] = preparer.prepare(pages)
+            attrs["regions"] = len(prepared[0]) if prepared is not None else 0
+            self.prepare_workers = max(self.prepare_workers, attrs["workers"])
             return prepared
 
     def _ocr_dispatch(self, prepared, analyze_pending):
