@@ -14,16 +14,20 @@ with their inputs and the program's outputs as the program returned them:
 
 Afterwards ``compare`` runs the reference on the same inputs and reads one
 number a comparison (``NUMBERS``); ``outputs`` reads what every finished
-book wrote. The reference imports nothing of the program; it reads the
+book wrote. A configuration adds comparisons of its own as files,
+``compare/<name>.py``, listed by name under its ``"compare"`` key
+(``comparisons``). The reference imports nothing of the program; it reads the
 program's outputs only to judge them. The DB post stage is followed step by
 step from the program's own mask (thresholded program logits); the logits
 themselves are judged by ``db_gap``.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
+import re
 import threading
 
 import numpy as np
@@ -70,11 +74,14 @@ class Reservoir:
             self.items[i] = item
 
 
+SAMPLES = 6  # calls each comparison keeps
+
+
 class Captures:
     """Wraps the device layers' entry points for the run (``install``) and
     keeps the sampled calls."""
 
-    def __init__(self, seed: int, k: int = 6):
+    def __init__(self, seed: int, k: int = SAMPLES):
         ss = np.random.SeedSequence([seed, 2])
         r = [np.random.default_rng(s) for s in ss.spawn(3)]
         self.analyze, self.rec, self.db = (Reservoir(k, g) for g in r)
@@ -262,6 +269,49 @@ def compare(caps: Captures, device, control: bool = False) -> dict:
         ctrl = M.DetectorRef(tree, device, fp8=True) if control else None
         out.update(db_numbers(caps.db.items, ref, device, ctrl))
     return out
+
+
+# ------------------------------------------- a configuration's own comparisons
+
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+
+
+def comparisons(names, root: str) -> dict:
+    """The modules ``<root>/compare/<name>.py`` of the names a configuration
+    lists, by name. Each has
+
+    - ``install(seed, k) -> (captures, undo callables)``: wraps the calls it
+      compares for the window and keeps ``k`` of them, drawn from the seed
+      (``Reservoir``);
+    - ``to_host(captures) -> captures``: the kept outputs copied to the host
+      once the window has closed;
+    - ``numbers(captures, device, control) -> {name: number}``: its reference
+      on the kept inputs, run after the program is freed and after
+      ``compare``, so with TF32 off; with ``control`` its control stands in
+      the program's place.
+
+    A name without its file fails the run; none is skipped."""
+    mods = {}
+    for name in names:
+        path = os.path.join(root, "compare", f"{name}.py")
+        if not (isinstance(name, str) and NAME.fullmatch(name) and os.path.isfile(path)):
+            raise SystemExit(f"portbench: the configuration lists comparison "
+                             f"{name!r}, and there is no compare/{name}.py")
+        spec = importlib.util.spec_from_file_location(f"portbench_compare_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mods[name] = mod
+    return mods
+
+
+def merge(numbers: dict, more: dict, source: str) -> None:
+    """Add ``more`` to ``numbers``; a name that is there already fails the
+    run rather than replace a reading."""
+    clash = sorted(set(numbers) & set(more))
+    if clash:
+        raise SystemExit(f"portbench: {source} reads {clash}, which another "
+                         "comparison reads already")
+    numbers.update(more)
 
 
 # ------------------------------------------------------------ written books

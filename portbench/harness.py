@@ -7,11 +7,19 @@ Everything a cell is made of is found by name: the workload in
 ``BENCHMARK.json``, its configuration file, its traffic mix
 (``traffic/<mix>.json``), the span files (``spans/*.py``) and one reader a
 metric (``metrics/<metric>.py``: ``read(run) -> number or None``).
+
+A configuration may also bring the pipeline's vision-LLM client
+(``"vision_llm": {"client": "synapta_tpu_torch.<module>:<factory>",
+"args": {...}}``, ``make_client``) and comparisons of its own
+(``"compare": [<name>, ...]``, files ``compare/<name>.py``,
+``check.comparisons``). A configuration without those keys runs as before.
 """
 from __future__ import annotations
 
 import gc
+import importlib
 import importlib.util
+import inspect
 import json
 import os
 import platform
@@ -25,6 +33,7 @@ from types import SimpleNamespace
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "synapta_tpu")
+CLIENT_PACKAGE = "synapta_tpu_torch."
 
 
 def load_benchmark(path: str = os.path.join(REPO, "BENCHMARK.json")) -> dict:
@@ -57,6 +66,24 @@ def reader(name: str, root: str = HERE):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def make_client(spec: dict, device: str, seed: int):
+    """The configuration's vision-LLM client: ``spec["client"]`` names a
+    factory ``synapta_tpu_torch.<module>:<name>`` of the program, called with
+    ``spec["args"]`` and, where its signature names them, ``device`` and
+    ``seed``. It has the pipeline's client interface, ``stats`` (``calls``,
+    ``failures``) and ``shutdown()``."""
+    target = spec.get("client")
+    mod_name, _, attr = str(target).partition(":")
+    if not (mod_name.startswith(CLIENT_PACKAGE) and attr.isidentifier()):
+        raise SystemExit(f"portbench: vision_llm client {target!r} is not "
+                         f"'{CLIENT_PACKAGE}<module>:<factory>'")
+    factory = getattr(importlib.import_module(mod_name), attr)
+    kw = dict(spec.get("args", {}))
+    params = inspect.signature(factory).parameters
+    kw.update((k, v) for k, v in (("device", device), ("seed", seed)) if k in params)
+    return factory(**kw)
 
 
 def forbidden_modules() -> list:
@@ -142,8 +169,9 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
              control: bool = False, shelf_books: int = None) -> dict:
     """One run; -> the result object (the last line). ``mix`` overrides the
     traffic file (tests); ``control`` puts the fp8 reference in the
-    program's place for the model comparisons; ``shelf_books`` makes only
-    the shelf's first books (short calibration runs)."""
+    program's place for the model comparisons (and each configuration
+    comparison's control in its place); ``shelf_books`` makes only the
+    shelf's first books (short calibration runs)."""
     import torch
 
     from portbench import check, counts, shelf, tracing
@@ -151,6 +179,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     proc_start = time.time() if proc_start is None else proc_start
     cell = cell_spec(bench, workload, root)
     config = cell["config"]
+    own = check.comparisons(config.get("compare", []), os.path.join(root, "portbench"))
     mix = mix if mix is not None else shelf.load_mix(cell["mix"], os.path.join(root, "portbench"))
     scanned = config["generator"] == "scanned_book"
     if shelf_books:
@@ -158,6 +187,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
     if "visuals_per_page" in config:
         mix = dict(mix, visuals_per_page=config["visuals_per_page"])
     tmp = tempfile.mkdtemp(prefix="portbench_")
+    client = None
     try:
         warm, books, gen_s = shelf.generate(
             mix, cell["mix"], seed, os.path.join(tmp, "shelf"),
@@ -177,9 +207,12 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
             from synapta_tpu_torch.ops import _build
 
             _build.library()
+        if "vision_llm" in config:  # the engine's build counts as set-up
+            client = make_client(config["vision_llm"], device, seed)
         out_root = os.path.join(tmp, "out")
         q = BookQueue(output_root=out_root,
-                      config=PipelineConfig(**config["pipeline"]), device=device)
+                      config=PipelineConfig(**config["pipeline"]),
+                      llm_client=client, device=device)
         q.add(warm["path"], book_id="warmup")
         q.run()
         if q.jobs[0].status != "done":
@@ -189,6 +222,10 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
         caps = check.Captures(seed)
         undo = tracing.install(rec, os.path.join(root, "portbench"))
         undo += caps.install()
+        own_caps = {}
+        for name, mod in own.items():
+            own_caps[name], u = mod.install(seed, check.SAMPLES)
+            undo += u
         rec.tracing = trace
         prof = None
         if trace:
@@ -202,6 +239,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
 
         # ---------------------------------------------------- window
         timers0 = dict(TIMERS.totals)
+        llm0 = dict(client.stats) if client is not None else None
         setup_s = time.time() - proc_start - gen_s
         cpu0 = time.process_time()
         t0 = time.perf_counter()
@@ -221,6 +259,9 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
             k += 1
         t1 = time.perf_counter()
         window_s = t1 - t0
+        llm = ({"llm_calls": client.stats["calls"] - llm0["calls"],
+                "llm_failures": client.stats["failures"] - llm0["failures"]}
+               if client is not None else {})
         proc_cpu_s = time.process_time() - cpu0
         if prof is not None:
             if dev.type == "cuda":
@@ -244,7 +285,7 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
                                turn[-1]],
               "stage_s": dict(sorted(((k_, v) for k_, v in timers.items() if v > 0.01),
                                      key=lambda kv: -kv[1])),
-              "proc_cpu_s": proc_cpu_s})
+              "proc_cpu_s": proc_cpu_s, **llm})
         if reused:
             _say({"warning": f"the shelf ran out: {reused} books sent a second "
                              "time; a later benchmark PR must grow the shelf"})
@@ -264,12 +305,20 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
 
         # ---------------------------------------------------- comparison
         caps.to_host()
+        own_caps = {n: own[n].to_host(c) for n, c in own_caps.items()}
+        if client is not None:  # freed with the program, before any reference
+            client.shutdown()
+            client = None
         del q
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         numbers = check.compare(caps, dev, control=control)
         numbers.update(check.outputs(finished, out_root, scanned))
+        numbers.update(llm)
+        for name, mod in own.items():  # TF32 is off since check.compare
+            check.merge(numbers, mod.numbers(own_caps[name], dev, control),
+                        f"compare/{name}.py")
         _say({"trace_read_s": t_cmp - t_read,
               "compare_s": time.perf_counter() - t_cmp})
         limits = dict(config.get("limits", {}))
@@ -287,4 +336,6 @@ def run_cell(bench: dict, workload: str, seed: int, seconds: float,
         return assemble(cell, run, trace, numbers, limits, dev_info,
                         os.path.join(root, "portbench"))
     finally:
+        if client is not None:
+            client.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)

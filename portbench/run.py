@@ -38,8 +38,10 @@ def main() -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--control", action="store_true",
                     help="put the control, the reference in fp8, in the "
-                         "program's place for the model comparisons (a "
-                         "check of the comparison: it has to read false)")
+                         "program's place for the model comparisons, and "
+                         "each comparison a configuration brings its own "
+                         "control (a check of the comparison: it has to "
+                         "read false)")
     ap.add_argument("--shelf", type=int, default=None,
                     help="make only the shelf's first N books (short runs "
                          "that read the comparison, not the metrics)")

@@ -51,6 +51,27 @@ def _span(name, sid, tid, t0, t1, **attrs):
     return tracing.Span(name, sid, tid, (t0 + 1e6) / 1e6, (t1 + 1e6) / 1e6, attrs)
 
 
+# the program's own spans of the main thread (12), on the trace's clock in
+# µs: the book, its prepare, its dispatch with the DB post stage inside,
+# its enrich
+PROGRAM = [("book", 5, 995, {"pages": 2}), ("prepare_body", 10, 190, {"pages": 2}),
+           ("dispatch", 190, 700, {}), ("db_post", 610, 660, {"views": 3}),
+           ("enrich", 700, 990, {})]
+
+
+def program_timers(monkeypatch):
+    """The program's ``TIMERS`` holding ``PROGRAM``, as a traced window
+    leaves it (host ``perf_counter_ns``: the trace's clock less 1 s)."""
+    from synapta_tpu_torch.utils import profiler
+
+    timers = profiler.StageTimers()
+    for i, (name, a, b, attrs) in enumerate(PROGRAM):
+        timers.spans.append(profiler.Span(name, 100 + i, None, "b0", 0, 12, 0x7FA1B0000740,
+                                          int((a + 1e6) * 1e3), int((b + 1e6) * 1e3),
+                                          dict(attrs)))
+    monkeypatch.setattr(profiler, "TIMERS", timers)
+
+
 def fake_run(books=None):
     dtrace = tracing.device_trace(EVENTS)
     # the host clock of the spans runs 1 s behind the trace's; the spans of
@@ -135,9 +156,10 @@ def test_idle_gaps_and_ops():
     assert [g[1] for g in gaps] == pytest.approx([170e-6, 110e-6, 10e-6, 10e-6, 5e-6])
 
 
-def test_result_line_from_a_fake_run():
+def test_result_line_from_a_fake_run(monkeypatch):
     bench = harness.load_benchmark()
     cell = harness.cell_spec(bench, "scanned-chapters")
+    program_timers(monkeypatch)
     run = fake_run()
     dev = {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1,
            "memory_peak_bytes": 123}
@@ -154,6 +176,11 @@ def test_result_line_from_a_fake_run():
     assert out["checks"]["rec_gap"] == {"value": 0.1, "limit": 1.5}
     traced = harness.assemble(cell, run, True, numbers, limits, dev)
     assert set(traced["metrics"]) == {m["name"] for m in cell["per_layer"]}
+    got = {n: m["value"] for n, m in traced["metrics"].items()}
+    assert sum(got[n] for n in ("idle_in_prepare_pct", "idle_in_dispatch_pct",
+                                "idle_in_enrich_pct", "idle_between_stages_pct")
+               ) == pytest.approx(got["device_idle_pct"])
+    assert got["db_post_ms_per_view"] == pytest.approx(0.04 / 3)
     assert traced["device"]["busy_s"] == pytest.approx(235e-6)
     assert len(traced["breakdown"]["device_ops"]) <= 10
     json.dumps(traced)

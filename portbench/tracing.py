@@ -7,7 +7,8 @@ program looks up at call time), and an optional ``attrs(args, kwargs,
 result) -> dict`` records counts from the call's arguments (shapes, real
 rows). ``install`` wraps every declared boundary for the run: each call
 appends a ``Span`` (name, id, thread, host start and end, attrs) to the
-recorder, and while the profiler runs it also enters
+recorder (a boundary the program under test lacks is skipped with a line on
+standard error), and while the profiler runs it also enters
 ``record_function("pb.<name>#<id>")``. The profiler records those
 annotations on the thread that started it only; ``attribute`` uses them to
 put every span on the trace's clock and gives each span the device time of
@@ -22,6 +23,7 @@ import importlib
 import importlib.util
 import json
 import os
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -124,10 +126,19 @@ def wrap(owner, attr: str, name: str, rec: Recorder, attrs_fn=None):
 
 
 def install(rec: Recorder, root: str = HERE) -> List:
-    """Wrap every declared span boundary; -> undo callables."""
+    """Wrap every declared span boundary; -> undo callables. A span whose
+    target the program under test lacks (a module, a class or a function
+    that a later tree adds) is skipped with one line on standard error:
+    the metrics that read only it report nothing, as without a trace."""
     undo = []
     for name, mod in load_span_specs(root).items():
-        owner, attr = _resolve(mod.TARGET)
+        try:
+            owner, attr = _resolve(mod.TARGET)
+            getattr(owner, attr)
+        except (ImportError, AttributeError) as e:
+            print(f"portbench: span spans/{name}.py skipped: no {mod.TARGET} "
+                  f"({type(e).__name__}: {e})", file=sys.stderr, flush=True)
+            continue
         undo.append(wrap(owner, attr, name, rec, getattr(mod, "attrs", None)))
     return undo
 
